@@ -62,7 +62,7 @@ KNOBS: dict = {
     "JX_TPU_LAMBDA_HIGH": (float, 5.0, "log10 lambda search upper bound"),
     "JX_TPU_EIGH_BACKEND": (str, "host", "GRM eigendecomposition backend: host (LAPACK) | device (torch.linalg.eigh)"),
     "JX_TPU_GRM_FLUSH": (int, 16, "SNP blocks accumulated in f32 before each f64 flush in the GRM build"),
-    "JX_TPU_ROTATE_PREC": (str, "highest", "decode+rotate precision: highest (full f32); high is not ported yet"),
+    "JX_TPU_ROTATE_PREC": (str, "highest", "decode+rotate precision: highest (f32-accurate: exact bf16 pieces on the tensor cores, 6 passes) | high (the reference's bf16x3, 3 passes; up to ~3e-5 matrix-relative from highest on an eigenbasis)"),
     "JX_TPU_LOWMEM": (bool, False, "force the disk-backed windowed genotype path regardless of size"),
     "JX_TPU_LOWMEM_BYTES": (int, None, "packed-size threshold (bytes) above which inputs stream from disk"),
     "JX_TPU_CACHE_BESIDE_SOURCE": (bool, False, "place ~name genotype caches next to the source (reference layout)"),

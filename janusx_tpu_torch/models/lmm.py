@@ -72,7 +72,7 @@ def lattice_superblock(n: int, grid_points: int, block: int,
     return max(min(superblock, (cap // block) * block), block)
 
 
-def _lmm_scan_resident(pk, mn, U32, rot: RotatedData, sh, n: int,
+def _lmm_scan_resident(pk, mn, U32, U_split, rot: RotatedData, sh, n: int,
                        rot_prec: str):
     """Whole resident-chunk scan on pre-blocked (nblk, B, nb) packed rows.
     Returns (beta, se, pwald) f64 tensors of nblk*B lanes."""
@@ -83,7 +83,7 @@ def _lmm_scan_resident(pk, mn, U32, rot: RotatedData, sh, n: int,
         # 2048-row block leaves a quarter of the card idle (csrc/rotate.cu)
         W, YX, SH = _lattice_operands(sh, rot)
         Gr = kernels.decode_rotate(pk.reshape(nblk * B, -1), mn.reshape(-1), U32,
-                                   prec=rot_prec)
+                                   prec=rot_prec, U_split=U_split)
         neg = kernels.grid_neg_reml_lattice(Gr, W, YX, SH, p=p,
                                             ridge=config.GRAM_RIDGE, nf=float(n))
         lgs = argmin_parabolic(neg, sh.grid_lg)
@@ -92,7 +92,8 @@ def _lmm_scan_resident(pk, mn, U32, rot: RotatedData, sh, n: int,
     else:
         parts = []
         for i in range(nblk):
-            Gr32 = kernels.decode_rotate(pk[i], mn[i], U32, prec=rot_prec)
+            Gr32 = kernels.decode_rotate(pk[i], mn[i], U32, prec=rot_prec,
+                                         U_split=U_split)
             lgs_b = lmm_grid_scan_with(sh, rot, Gr32)
             parts.append(final_grams_f32(rot, Gr32, lgs_b, False)
                          + (torch.sum(Gr32 * Gr32, dim=-1),))
@@ -184,7 +185,7 @@ def lmm_scan(
         raise NotImplementedError(
             "SNP-sharded scans are not ported yet (ROADMAP queue 1, item 23)")
     dev = config.resolve_device(device)
-    rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", ("highest", "high"))
+    rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", kernels.ROTATE_PRECS)
     if grid_points is None:
         grid_points = config.knob("JX_TPU_GRID_POINTS")
     y = np.asarray(y, np.float64).reshape(-1)
@@ -218,7 +219,10 @@ def lmm_scan(
     pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
     mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
     U32 = devcache.to_device(basis.U, f32, dev)
-    beta_d, se_d, pw_d = _lmm_scan_resident(pk, mn, U32, rot, sh, n, rot_prec)
+    # K1's bf16 pieces of U, made once per basis and device
+    U_split = devcache.derived(basis.U, "u_split", dev, lambda: kernels.split_u(U32))
+    beta_d, se_d, pw_d = _lmm_scan_resident(pk, mn, U32, U_split, rot, sh, n,
+                                            rot_prec)
     # one f32 stack to the host, as the reference ships it
     out = torch.stack([beta_d.to(f32), se_d.to(f32), pw_d.to(f32)])
     out = out.cpu().numpy().astype(np.float64)[:, :m]

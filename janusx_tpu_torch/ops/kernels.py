@@ -4,8 +4,9 @@ plain-PyTorch versions.
 Two kernels carry the ``jx gwas -lmm`` scan (the JAX package's only two
 ``pl.pallas_call``s, janusx_tpu/ops/pallas_kernels.py):
 
-- K1 ``decode_rotate``: R = decode_centered(packed, mean) @ U
-  (csrc/rotate.cu; replaces ``decode_rotate_planar``);
+- K1 ``decode_rotate``: R = decode_centered(packed, mean) @ U on the
+  tensor cores, in the reference's two precision modes (csrc/rotate.cu;
+  replaces ``decode_rotate_planar``);
 - K2 ``grid_neg_reml_lattice``: the (SNP x lambda) profiled -REML lattice
   (csrc/lattice.cu; replaces ``grid_neg_reml_lattice``).
 
@@ -38,7 +39,7 @@ _CSRC = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR.parent / "build" / "janusx_tpu_torch"
 _SOURCES = ("rotate.cu", "lattice.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 # ----------------------------------------------------------------- build
@@ -52,15 +53,18 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the kernels' shared library for the current sources lives."""
+    """Where the kernels' shared library for the current sources lives: a
+    hash of the flags and of every file under csrc/ (headers included)."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
+    for f in sorted(_CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return _BUILD_DIR / f"libjx_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, float]:
-    """Compile the kernels unless a library for these sources exists.
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link.
     Returns (path, seconds spent compiling). The compiler's resource
     report (-Xptxas -v) is kept beside the library as ``.log``."""
     so = library_path()
@@ -69,15 +73,22 @@ def build() -> tuple[Path, float]:
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src + ".o") for src in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        lib = os.path.join(tmp, "lib.so")
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", lib, *objs],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        so.with_suffix(".log").write_text("".join(logs))
+        if not os.path.exists(lib):
+            raise RuntimeError("nvcc failed:\n" + "".join(logs))
+        os.replace(lib, so)
     return so, time.monotonic() - t0
 
 
@@ -86,7 +97,7 @@ def _lib() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.jx_decode_rotate.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.jx_decode_rotate.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.jx_decode_rotate.restype = i
     lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
     lib.jx_grid_lattice.restype = i
@@ -104,42 +115,117 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
 
 
 def _raise_on(err: int, what: str) -> None:
+    """A kernel entry returns cudaGetLastError(); rotate.cu returns -1 for a
+    missing tensor-map encoder and -(1000 + CUresult) for a refused map."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
 # ------------------------------------------------------------ K1 rotate
+ROTATE_PRECS = ("highest", "high")
+# U-split tile multiples: csrc/rotate.cu's BK (samples per stage) and BN
+_ROT_BK = 64
+_ROT_BN = 64
+
+
+def split_bf16(x: torch.Tensor, pieces: int) -> list[torch.Tensor]:
+    """x (f32) as ``pieces`` bf16-valued f32 tensors of the same shape, each
+    the round-to-nearest bf16 of what the earlier ones left: three pieces
+    sum back to x exactly (24 mantissa bits), two are the reference's
+    hi/lo split (janusx_tpu/ops/pallas_kernels.py:88-91)."""
+    out, r = [], x.to(torch.float32)
+    for _ in range(pieces):
+        p = r.to(torch.bfloat16).to(torch.float32)
+        out.append(p)
+        r = r - p
+    return out
+
+
+def split_u(U: torch.Tensor) -> torch.Tensor:
+    """K1's B operand, made once per basis: U (K, N) f32 -> (3, Npad, Kpad)
+    bf16, the three ``split_bf16`` pieces transposed to K-major, N and K
+    zero-padded to multiples of the kernel's tiles (64 each)."""
+    K, N = U.shape
+    kpad = max(-(-K // _ROT_BK), 1) * _ROT_BK
+    npad = max(-(-N // _ROT_BN), 1) * _ROT_BN
+    out = torch.zeros((3, npad, kpad), dtype=torch.bfloat16, device=U.device)
+    for i, p in enumerate(split_bf16(U, 3)):
+        out[i, :N, :K] = p.T.to(torch.bfloat16)
+    return out
+
+
 def decode_rotate_plain(packed: torch.Tensor, mean: torch.Tensor,
                         U: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: f32 centered decode, then ``@ U``."""
+    """Plain version of K1 "highest": f32 centered decode, then ``@ U``."""
     return decode_centered(packed, mean, torch.float32)[:, : U.shape[0]] @ U
 
 
+def decode_rotate_high_plain(packed: torch.Tensor, mean: torch.Tensor,
+                             U: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 "high", the reference's bf16x3
+    (pallas_kernels.py:86-96): bf16 hi/lo of the centered value a and of
+    U, and a_hi u_hi + a_hi u_lo + a_lo u_hi as f32 matmuls of bf16-valued
+    tensors (every product exact)."""
+    a_hi, a_lo = split_bf16(decode_centered(packed, mean, torch.float32)
+                            [:, : U.shape[0]], 2)
+    u_hi, u_lo = split_bf16(U, 2)
+    return a_hi @ u_hi + a_hi @ u_lo + a_lo @ u_hi
+
+
+def _rows16(packed: torch.Tensor) -> torch.Tensor:
+    """K1 reads each row's bytes 16 at a time: packed as is when its rows
+    are 16-byte multiples, contiguous and aligned, else a copy padded with
+    0xFF (code 3, decodes to 0). The scan's rows are ceil(n/4) bytes and
+    take the copy: on the card (~0.1 ms per superblock) it measured ~60 ms
+    cheaper per 299k-SNP superblock than padding on the host before the
+    upload (H100)."""
+    M, nb = packed.shape
+    if nb % 16 == 0 and packed.is_contiguous() and packed.data_ptr() % 16 == 0:
+        return packed
+    out = torch.full((M, -(-nb // 16) * 16), 0xFF, dtype=torch.uint8,
+                     device=packed.device)
+    out[:, :nb] = packed
+    return out
+
+
 def decode_rotate(packed: torch.Tensor, mean: torch.Tensor, U: torch.Tensor,
-                  prec: str = "highest") -> torch.Tensor:
+                  prec: str = "highest",
+                  U_split: torch.Tensor | None = None) -> torch.Tensor:
     """R (M, N) f32 = decode_centered(packed (M, nb) u8, mean (M,) f32)
     @ U (K, N) f32 with K <= 4 nb: samples k >= K are ignored and U is in
-    natural sample order (no plane-major permutation)."""
-    if prec != "highest":
-        raise NotImplementedError(
-            f"decode_rotate prec={prec!r}: only 'highest' (full f32) is "
-            "ported; the reduced-precision mode is a ROADMAP item (K1 prec)")
+    natural sample order (no plane-major permutation). ``prec`` is
+    "highest" (f32-accurate) or "high" (the reference's bf16x3). On the
+    card the kernel reads ``U_split = split_u(U)``; pass it to make the
+    split once per basis instead of once per call."""
+    if prec not in ROTATE_PRECS:
+        raise ValueError(f"decode_rotate prec={prec!r}: expected one of {ROTATE_PRECS}")
     M, nb = packed.shape
     K, N = U.shape
     if K > 4 * nb or mean.shape != (M,):
         raise ValueError(f"decode_rotate: packed {tuple(packed.shape)}, "
                          f"mean {tuple(mean.shape)}, U {tuple(U.shape)}")
     if packed.device.type == "cpu":
-        return decode_rotate_plain(packed, mean, U)
+        plain = decode_rotate_plain if prec == "highest" else decode_rotate_high_plain
+        return plain(packed, mean, U)
     dev = packed.device
     _check(packed, "packed", torch.uint8, 2, dev)
     _check(mean, "mean", torch.float32, 1, dev)
     _check(U, "U", torch.float32, 2, dev)
+    if U_split is None:
+        U_split = split_u(U)
+    _check(U_split, "U_split", torch.bfloat16, 3, dev)
+    _, npad, kpad = U_split.shape
+    if (U_split.shape[0] != 3 or npad < N or kpad < K or npad % _ROT_BN
+            or kpad % _ROT_BK or not U_split.is_contiguous()):
+        raise ValueError(f"decode_rotate: U_split {tuple(U_split.shape)} is not "
+                         f"split_u of a ({K}, {N}) U")
+    packed = _rows16(packed)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().jx_decode_rotate(
-            packed.data_ptr(), mean.data_ptr(), U.data_ptr(), out.data_ptr(),
-            M, K, N, packed.stride(0), U.stride(0), out.stride(0),
+            packed.data_ptr(), mean.data_ptr(), U_split.data_ptr(),
+            out.data_ptr(), M, K, N, packed.stride(0), npad, kpad,
+            out.stride(0), int(prec == "high"),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "decode_rotate")
     decode_rotate.launches += 1

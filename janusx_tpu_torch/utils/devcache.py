@@ -37,6 +37,16 @@ def to_device(arr: np.ndarray, dtype: torch.dtype, device: torch.device) -> torc
     return _remember(arr, key, dev)
 
 
+def derived(src, tag: str, device: torch.device, make) -> torch.Tensor:
+    """``make()`` (a device tensor derived from host array ``src``), cached
+    on the identity of ``src`` under ``tag``."""
+    key = (id(src), tag, str(device))
+    hit = _cache.get(key)
+    if hit is not None:
+        return hit
+    return _remember(src, key, make())
+
+
 def device_packed_blocks(pg, shape: tuple, device: torch.device,
                          lane_align: int = 4) -> torch.Tensor:
     """Lane-pad + row-pad (0xFF = code 3, decodes to 0) + reshape + upload

@@ -6,7 +6,9 @@ without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
-Bounds: K1 rtol 1e-5 / atol 1e-4 (tests/test_pallas.py:29); K2 the same
+Bounds: K1 rtol 1e-5 / atol 1e-4 (tests/test_pallas.py:29) in each mode
+against its own plain version, "high" also within matrix-relative 1e-5 of
+"highest" (tests/test_pallas.py:134); K2 the same
 finite/inf pattern and finite cells rtol 1e-4 against the plain version
 on the same device.
 """
@@ -17,7 +19,7 @@ import torch
 
 from janusx_tpu_torch import config
 from janusx_tpu_torch.io import bitcodec
-from janusx_tpu_torch.ops import kernels
+from janusx_tpu_torch.ops import decode, kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -35,19 +37,52 @@ def _block(rng, M, n):
     return bitcodec.pack_codes(codes), rng.uniform(0, 2, M).astype(np.float32)
 
 
-@pytest.mark.parametrize("M,n,N", [(2048, 1410, 1410), (1000, 997, 997),
-                                   (5, 9, 3), (130, 257, 129)])
-def test_decode_rotate_kernel_matches_plain(dev, M, n, N):
+_PLAIN = {"highest": kernels.decode_rotate_plain,
+          "high": kernels.decode_rotate_high_plain}
+
+
+def _operands(dev, M, n, N, align16, scale):
+    """Packed rows at the packed stride ceil(n/4) (353 bytes at n = 1,410:
+    not a multiple of 16) or padded to 16 bytes as the scan lays them out,
+    and U = randn * scale."""
     rng = np.random.default_rng(M * n)
     packed, mean = _block(rng, M, n)
+    if align16:
+        packed = decode.pad_packed_cols(packed, 64)
     pk, mn = torch.from_numpy(packed).to(dev), torch.from_numpy(mean).to(dev)
-    U = torch.randn((n, N), generator=torch.Generator().manual_seed(n)).to(dev)
+    U = torch.randn((n, N), generator=torch.Generator().manual_seed(n)) * scale
+    return pk, mn, U.to(dev)
+
+
+@pytest.mark.parametrize("prec", ["highest", "high"])
+@pytest.mark.parametrize("M,n,N,align16", [
+    (2048, 1410, 1410, False), (2048, 1410, 1410, True), (1000, 997, 997, False),
+    (5, 9, 3, False), (130, 257, 129, False)])
+def test_decode_rotate_kernel_matches_plain(dev, prec, M, n, N, align16):
+    """Each mode against its own plain version. U has columns of unit
+    expected norm, as the eigenbasis the scan rotates by: at |U| ~ 1 and
+    n = 1,410 the f32 plain version is itself 3.0e-4 from the exact
+    product (H100), beyond the bound (see the f64 test below)."""
+    pk, mn, U = _operands(dev, M, n, N, align16, n ** -0.5)
     before = kernels.decode_rotate.launches
-    got = kernels.decode_rotate(pk, mn, U)
-    want = kernels.decode_rotate_plain(pk, mn, U)
+    got = kernels.decode_rotate(pk, mn, U, prec=prec)
+    want = _PLAIN[prec](pk, mn, U)
     torch.cuda.synchronize()
     assert kernels.decode_rotate.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    if prec == "high":
+        highest = kernels.decode_rotate(pk, mn, U)
+        assert float((got - highest).abs().max() / highest.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("align16", [False, True])
+def test_decode_rotate_highest_is_f32_accurate(dev, align16):
+    """At |U| ~ 1, n = 1,410, "highest" within rtol 1e-5 / atol 1e-4 of the
+    exact (f64) product of the same decoded operand."""
+    pk, mn, U = _operands(dev, 2048, 1410, 1410, align16, 1.0)
+    got = kernels.decode_rotate(pk, mn, U)
+    exact = decode.decode_centered(pk, mn, torch.float64)[:, :1410] @ U.double()
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-4)
 
 
 def _lattice_args(rng, Gr, G, p, dev):
@@ -91,7 +126,8 @@ def test_grid_lattice_kernel_matches_plain(dev, p, B, G, n):
     _check_lattice(_lattice_args(rng, Gr, G, p, dev))
 
 
-def test_kernels_take_rows_beyond_one_grid_axis_of_65535_blocks(dev):
+@pytest.mark.parametrize("prec", ["highest", "high"])
+def test_kernels_take_rows_beyond_one_grid_axis_of_65535_blocks(dev, prec):
     """SNP rows map to the grid's x axis, so one launch covers a whole
     resident superblock whatever its size (narrow n keeps this small)."""
     rng = np.random.default_rng(7)
@@ -99,9 +135,8 @@ def test_kernels_take_rows_beyond_one_grid_axis_of_65535_blocks(dev):
     packed, mean = _block(rng, M, n)
     pk, mn = torch.from_numpy(packed).to(dev), torch.from_numpy(mean).to(dev)
     U = torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32, device=dev)
-    Gr = kernels.decode_rotate(pk, mn, U)
-    torch.testing.assert_close(Gr, kernels.decode_rotate_plain(pk, mn, U),
-                               rtol=1e-5, atol=1e-4)
+    Gr = kernels.decode_rotate(pk, mn, U, prec=prec)
+    torch.testing.assert_close(Gr, _PLAIN[prec](pk, mn, U), rtol=1e-5, atol=1e-4)
     _check_lattice(_lattice_args(rng, Gr[: 65_536 * 32 + 3], 5, 2, dev))
 
 
