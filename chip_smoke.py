@@ -17,10 +17,12 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     times;
  4. K2 λ-lattice on the card vs its plain version (G = 256, n = 1410:
     B = 299,008 and B = 2048 with p = 1, B = 2048 with p = 3; ragged
-    B = 1000, G = 200, n = 997, p = 2): the same finite/inf pattern, λ*
-    within 2.02 grid spacings with > 50 % in the same argmin grid cell,
-    beta/se at each λ* within rtol 2e-3 (beta's absolute floor 2e-3 se),
-    with both times;
+    B = 1000, G = 200, n = 997, p = 2; over a trait axis T = 4 at
+    B = 299,008, p = 1, and ragged T = 3 at B = 1000, G = 200, n = 997,
+    p = 2): the same finite/inf pattern, λ* within 2.02 grid spacings with
+    > 50 % in the same argmin grid cell, beta/se at each λ* within rtol
+    2e-3 (beta's absolute floor 2e-3 se), each trait of a trait-axis launch
+    equal to its single-trait launch, with both times;
  5. the main path: a synthetic PLINK panel (1,940 samples, 1,410
     phenotyped, in sibships of 5; 600,000 SNPs, MAF ~ U[0.05, 0.5], 2 %
     missing; the trait is 20 planted QTLs of 3 % variance each + a 20 %
@@ -30,8 +32,22 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
  6. cross-check: the first 16,384 QC'd SNPs rescanned on the CPU (plain
     versions) with the same basis: max Δ(-log10 p) <= 0.05, the same top
     5, λ_null within 2e-3;
- 7. a JSON line with each kernel's numbers (K1's "high" mode beside its
-    default), then the result line.
+ 7. the trait-level path on the same panel: five traits (phase 5's, three
+    more polygenic ones, one of noise that the switch test sends to LM)
+    through ``jx gwas -lm -lmm -lmm2 -fvlmm -trait-level`` without
+    -force-model; checks that the noise trait ran as LM, that K1 and K2
+    launched once per superblock for the whole trait batch, that the
+    trait-level TSVs are rectangular, that phase 5's trait agrees with
+    phase 5's TSV (Δ(-log10 p) <= 5e-3), and a CPU rescan of the first
+    16,384 SNPs of every trait and model (Δ(-log10 p) <= 0.05, same top 5);
+ 8. the other routes on a -bimrange window of ~29,600 SNPs: ``-lmm
+    -scan-method brent`` against phase 5's grid rows (Δ(-log10 p) <=
+    5e-3), and ``-lm2 -fvlmm2 -farmcpu`` with a covariate file against
+    CPU rescans (the first 4,096 window SNPs for the interaction scans,
+    the whole window for FarmCPU; Δ(-log10 p) <= 0.05, same top 5);
+ 9. each phase's wall, a JSON line with each kernel's numbers (K1's "high"
+    mode and K2's trait axis beside their defaults; the launches of each
+    path), then the result line.
 """
 
 from __future__ import annotations
@@ -58,6 +74,9 @@ SEGMENT = 2_000  # SNPs between recombinations
 N_QTL = 20
 CROSS_SNPS = 16_384
 GRID = 256
+TRAITS = ("test0", "t1", "t2", "t3", "flat")  # the trait-level phenotype
+MODELS = ("lm", "lmm", "lmm2", "fvlmm")
+WINDOW = "1:0.1-1.6"  # -bimrange of phase 8: ~29,580 SNPs of chromosome 1
 HEADER = "chrom\tpos\tsnp\tallele0\tallele1\taf\tmiss\tbeta\tse\tchisq\tpwald"
 
 
@@ -94,7 +113,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # ------------------------------------------------------------ phases 3-4
-def _basis(n: int, seed: int):
+def _basis(n: int, seed: int, traits: int = 1):
+    """An eigenbasis and ``traits`` traits on it (the first as it always
+    was; the others from their own generator)."""
     from janusx_tpu_torch.core.spectral import eigh_grm
 
     rng = np.random.default_rng(seed)
@@ -102,8 +123,11 @@ def _basis(n: int, seed: int):
     gc = g - g.mean(axis=1, keepdims=True)
     # a trait with a polygenic component on the basis' own SNPs (h2 ~ 0.3),
     # so the REML profile has an interior optimum, as real traits do
-    y = 3.0 + gc.T @ rng.normal(0.0, 0.02, 3000) + rng.normal(size=n)
-    return eigh_grm(gc.T @ gc / 3000.0, diag_ridge=1e-6), y, rng
+    ys = [3.0 + gc.T @ rng.normal(0.0, 0.02, 3000) + rng.normal(size=n)]
+    more = np.random.default_rng(seed + 1000)
+    ys += [3.0 + gc.T @ more.normal(0.0, 0.02, 3000) + more.normal(size=n)
+           for _ in range(traits - 1)]
+    return eigh_grm(gc.T @ gc / 3000.0, diag_ridge=1e-6), ys, rng
 
 
 def _packed_block(M: int, n: int, seed: int, dev):
@@ -185,33 +209,41 @@ def check_k1(dev, M: int, n: int, U_np, seed: int, timed: bool,
     return res
 
 
-def check_k2(dev, basis, y, rng, B: int, G: int, p: int, seed: int, timed: bool):
+def check_k2(dev, basis, ys, rng, B: int, G: int, p: int, seed: int, timed: bool):
+    """K2 against its plain version for the traits ``ys``, which share the
+    basis, the covariates and the grid: one trait in the single-trait
+    layout, several in one trait-axis launch (whose plain version is the
+    reference's loop over traits); each trait of such a launch must also
+    equal the single-trait launch on that trait bit for bit."""
     import torch
 
     from janusx_tpu_torch import config
     from janusx_tpu_torch.core.reml import (argmin_parabolic, final_stats_f32,
                                             grid_shared, make_grid, make_rotated)
-    from janusx_tpu_torch.models.lmm import _lattice_operands
+    from janusx_tpu_torch.models.lmm import _lattice_operands, _lattice_operands_multi
     from janusx_tpu_torch.ops import kernels
 
-    n = basis.n
+    n, T = basis.n, len(ys)
     cov = rng.normal(size=(n, p - 1)) if p > 1 else None
-    rot = make_rotated(basis, y, cov, device=dev)
-    sh = grid_shared(rot, make_grid(G, dev))
-    W, YX, SH = _lattice_operands(sh, rot)
+    rots = [make_rotated(basis, y, cov, device=dev) for y in ys]
+    grid = make_grid(G, dev)
+    shs = [grid_shared(rot, grid) for rot in rots]
+    W, YX, SH = (_lattice_operands(shs[0], rots[0]) if T == 1
+                 else _lattice_operands_multi(shs, rots))
     pk, mn = _packed_block(B, n, seed, dev)
     Gr = kernels.decode_rotate_plain(pk, mn, torch.as_tensor(
         np.ascontiguousarray(basis.U), dtype=torch.float32, device=dev))
     args = (Gr, W, YX, SH, p, config.GRAM_RIDGE, float(n))
-    got = kernels.grid_neg_reml_lattice(*args)
-    want = kernels.grid_neg_reml_lattice_plain(*args)
+    got = kernels.grid_neg_reml_lattice(*args).reshape(T, B, G)
+    want = kernels.grid_neg_reml_lattice_plain(*args).reshape(T, B, G)
     torch.cuda.synchronize()
+    what = f"K2 T={T} p={p}"
     fin = torch.isfinite(want)
-    require(torch.equal(torch.isfinite(got), fin), f"K2 p={p}: finite/inf pattern differs")
+    require(torch.equal(torch.isfinite(got), fin), f"{what}: finite/inf pattern differs")
     max_err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
-    lg_k = argmin_parabolic(got, sh.grid_lg)
-    lg_p = argmin_parabolic(want, sh.grid_lg)
-    h = float(sh.grid_lg[1] - sh.grid_lg[0])
+    lg_k = argmin_parabolic(got.reshape(T * B, G), grid).reshape(T, B)
+    lg_p = argmin_parabolic(want.reshape(T * B, G), grid).reshape(T, B)
+    h = float(grid[1] - grid[0])
     dlg = (lg_k - lg_p).abs()
     # "identical" = the same argmin grid cell; the parabolic refinement
     # then still moves with the last f32 bits of the three cells it reads
@@ -220,26 +252,37 @@ def check_k2(dev, basis, y, rng, B: int, G: int, p: int, seed: int, timed: bool)
     detail = (f"max|err| {max_err:.3g} (rel {rel:.3g}), λ* max move "
               f"{float(dlg.max()) / h:.3g} spacings, same argmin cell {same:.1%}, "
               f"λ* equal to 1e-6 {float((dlg < 1e-6).double().mean()):.1%}")
-    require(bool((dlg <= 2.02 * h).all()), f"K2 p={p}: λ* moved > 2.02 spacings; {detail}")
-    require(same > 0.5, f"K2 p={p}: too few identical argmin cells; {detail}")
-    b_k, se_k, _ = final_stats_f32(rot, Gr, lg_k, False)
-    b_p, se_p, _ = final_stats_f32(rot, Gr, lg_p, False)
-    # rtol 2e-3 (tests/test_pallas.py:102-110); a beta that is ~0 against
-    # its own standard error gets the absolute floor 2e-3 * se (z within 2e-3)
-    for a, b, nm, floor in ((b_k, b_p, "beta", 2e-3 * se_p), (se_k, se_p, "se", 1e-6)):
-        ok = torch.isfinite(b)
-        require(torch.equal(torch.isfinite(a), ok), f"K2 p={p}: {nm} NaN lanes differ")
-        bad = (a - b).abs() > floor + 2e-3 * b.abs()
-        i = int(torch.argmax(((a - b).abs() / b.abs()).nan_to_num(0.0)))
-        require(not bool(bad[ok].any()),
-                f"K2 p={p}: {nm} at λ* outside rtol 2e-3 in {int(bad[ok].sum())} lanes; "
-                f"worst lane {i}: {float(a[i]):.6g} vs {float(b[i]):.6g}, λ* "
-                f"{float(lg_k[i]):.6f} vs {float(lg_p[i]):.6f}; {detail}")
+    require(bool((dlg <= 2.02 * h).all()), f"{what}: λ* moved > 2.02 spacings; {detail}")
+    require(same > 0.5, f"{what}: too few identical argmin cells; {detail}")
+    for t, rot in enumerate(rots):
+        b_k, se_k, _ = final_stats_f32(rot, Gr, lg_k[t], False)
+        b_p, se_p, _ = final_stats_f32(rot, Gr, lg_p[t], False)
+        # rtol 2e-3 (tests/test_pallas.py:102-110); a beta that is ~0 against
+        # its own standard error gets the absolute floor 2e-3 * se (z within 2e-3)
+        for a, b, nm, floor in ((b_k, b_p, "beta", 2e-3 * se_p), (se_k, se_p, "se", 1e-6)):
+            ok = torch.isfinite(b)
+            require(torch.equal(torch.isfinite(a), ok), f"{what}: {nm} NaN lanes differ")
+            bad = (a - b).abs() > floor + 2e-3 * b.abs()
+            i = int(torch.argmax(((a - b).abs() / b.abs()).nan_to_num(0.0)))
+            require(not bool(bad[ok].any()),
+                    f"{what} trait {t}: {nm} at λ* outside rtol 2e-3 in {int(bad[ok].sum())} "
+                    f"lanes; worst lane {i}: {float(a[i]):.6g} vs {float(b[i]):.6g}, λ* "
+                    f"{float(lg_k[t, i]):.6f} vs {float(lg_p[t, i]):.6f}; {detail}")
+        del b_k, se_k, b_p, se_p
+    if T > 1:
+        for t in range(T):
+            YX1 = torch.cat([YX[t:t + 1], YX[T:]]).contiguous()
+            one = kernels.grid_neg_reml_lattice(Gr, W, YX1, SH[t], p, config.GRAM_RIDGE,
+                                                float(n))
+            require(torch.equal(got[t], one), f"{what}: trait {t} differs from its "
+                                              "single-trait launch")
+        detail += "; each trait equal to its single-trait launch"
+    del want
     ms = plain = None
     if timed:
         ms = cuda_ms(lambda: kernels.grid_neg_reml_lattice(*args))
         plain = cuda_ms(lambda: kernels.grid_neg_reml_lattice_plain(*args))
-    say(f"phase 4 K2 grid_neg_reml_lattice B={B} G={G} n={n} p={p}: ok, "
+    say(f"phase 4 K2 grid_neg_reml_lattice T={T} B={B} G={G} n={n} p={p}: ok, "
         f"{detail}"
         + (f", kernel {ms:.4f} ms, plain {plain:.4f} ms" if timed else ""))
     return max_err, ms, plain
@@ -254,7 +297,11 @@ def write_panel(d: str, m: int, seed: int = 20261016):
     in a real panel and the null REML has an interior optimum. Returns
     (prefix, pheno_path, qtl_ids, expected_kept): expected_kept counts the
     SNPs that pass the default QC (MAF >= 0.02, missing <= 0.05) on the
-    phenotyped samples, computed here directly from the genotypes."""
+    phenotyped samples, computed here directly from the genotypes.
+
+    Beside the trait test0 it draws, from its own generator, three more
+    traits for the trait-level phenotype (write_traits), each with a 40 %
+    polygenic background."""
     from janusx_tpu_torch.io import bitcodec
     from janusx_tpu_torch.io.gdata import SiteInfo
     from janusx_tpu_torch.io.plink import write_plink
@@ -271,6 +318,8 @@ def write_panel(d: str, m: int, seed: int = 20261016):
     packed = np.empty((m, bitcodec.n_bytes(n)), np.uint8)
     g_bg = np.zeros(n)
     g_qtl = np.zeros(n)
+    more = np.random.default_rng(seed + 1)
+    g_more = np.zeros((n, 3))
     kept = 0
     for s in range(0, m, CHUNK):
         e = min(s + CHUNK, m)
@@ -288,6 +337,7 @@ def write_panel(d: str, m: int, seed: int = 20261016):
         packed[s:e] = bitcodec.pack_codes(np.where(miss, np.uint8(3), g))
         x = np.where(miss, np.float32(0.0), (g - 2 * p) / np.sqrt(2 * p * (1 - p)))
         g_bg += x.T @ rng.normal(0.0, np.sqrt(0.2 / m), k).astype(np.float32)
+        g_more += x.T @ more.normal(0.0, np.sqrt(0.4 / m), (k, 3)).astype(np.float32)
         for qi in np.nonzero((qtl >= s) & (qtl < e))[0]:
             g_qtl += qtl_eff[qi] * x[qtl[qi] - s]
         nm = (~miss[:, phen]).sum(axis=1)
@@ -310,7 +360,9 @@ def write_panel(d: str, m: int, seed: int = 20261016):
         fh.write("ID\ttest0\n")
         for j in range(n):
             fh.write(f"ind{j}\t{y[j]:.6f}\n" if is_phen[j] else f"ind{j}\tNA\n")
-    return prefix, pheno, {f"snp{i}" for i in qtl}, kept
+    Y = np.column_stack([y, 10.0 + g_more + more.normal(0.0, np.sqrt(0.6), (n, 3))])
+    Y[~is_phen] = np.nan
+    return prefix, pheno, {f"snp{i}" for i in qtl}, kept, Y
 
 
 def read_tsv(path: str):
@@ -320,19 +372,12 @@ def read_tsv(path: str):
     return header, rows
 
 
-def run_main_path(d: str, m: int):
-    """Panel -> CLI -> checks. Returns (prefix, pheno, rows, summary,
-    launches)."""
+def run_cli(argv, phase: str):
+    """``jx gwas`` through the port's CLI with every launch count set to 0
+    just before: returns (what it printed, wall seconds, launches)."""
     from janusx_tpu_torch.cli.main import main as cli_main
     from janusx_tpu_torch.ops import kernels
 
-    t0 = time.monotonic()
-    prefix, pheno, qtl_ids, kept = write_panel(d, m)
-    say(f"phase 5 panel: {N_SAMPLES} samples ({N_PHENO} phenotyped) x {m} SNPs "
-        f"written in {time.monotonic() - t0:.2f} s; {kept} SNPs pass QC")
-    out = os.path.join(d, "out")
-    argv = ["gwas", "-bfile", prefix, "-p", pheno, "-lmm", "-force-model",
-            "-n", "0", "-o", out]
     kernels.reset_launches()
     buf = io.StringIO()
     t1 = time.monotonic()
@@ -342,8 +387,55 @@ def run_main_path(d: str, m: int):
     launches = {"decode_rotate": kernels.decode_rotate.launches,
                 "grid_neg_reml_lattice": kernels.grid_neg_reml_lattice.launches}
     printed = buf.getvalue().strip()
-    say(f"phase 5 cli: rc={rc} wall={wall:.2f} s :: {printed}")
-    require(rc == 0, f"gwas CLI returned {rc}")
+    say(f"{phase} cli: rc={rc} wall={wall:.2f} s :: " + printed.replace("\n", " | "))
+    require(rc == 0, f"{phase}: gwas CLI returned {rc}")
+    return printed, wall, launches
+
+
+def stage_line(summary, runs=None) -> str:
+    """The run's shared stage seconds, then each run's own."""
+    parts = [f"{k}={v:.3f}" for k, v in summary["stages"].items()]
+    for r in summary["runs"] if runs is None else runs:
+        if r["stages"]:
+            parts.append(f"[{r['trait']} {r['requested']}] " + ", ".join(
+                f"{k}={v:.3f}" for k, v in r["stages"].items()))
+    return "; ".join(parts)
+
+
+def agree(card_p, cpu_p, what: str, bound: float) -> float:
+    """max Δ(-log10 p) <= bound and the same top 5; returns the max."""
+    lp_card, lp_cpu = -np.log10(np.asarray(card_p)), -np.log10(np.asarray(cpu_p))
+    require(bool(np.all(np.isfinite(lp_card))), f"{what}: non-finite p-values")
+    dmax = float(np.max(np.abs(lp_card - lp_cpu)))
+    require(dmax <= bound, f"{what}: max Δ(-log10 p) {dmax:.4g} > {bound}")
+    top = lambda lp: set(np.argsort(-lp, kind="stable")[:5])
+    require(top(lp_card) == top(lp_cpu), f"{what}: top-5 SNPs differ")
+    return dmax
+
+
+def p_col(rows, header: str, col: str = "pwald") -> np.ndarray:
+    i = header.split("\t").index(col)
+    return np.array([float(r[i]) for r in rows])
+
+
+def read_head(path: str, k: int):
+    """The header and the first k rows of a TSV."""
+    with open(path) as fh:
+        header = fh.readline().rstrip("\n")
+        rows = [fh.readline().rstrip("\n").split("\t") for _ in range(k)]
+    return header, [r for r in rows if r != [""]]
+
+
+def run_main_path(d: str, m: int):
+    """Panel -> CLI -> checks. Returns (prefix, pheno, rows, summary,
+    launches, qtl_ids, Y)."""
+    t0 = time.monotonic()
+    prefix, pheno, qtl_ids, kept, Y = write_panel(d, m)
+    say(f"phase 5 panel: {N_SAMPLES} samples ({N_PHENO} phenotyped) x {m} SNPs "
+        f"written in {time.monotonic() - t0:.2f} s; {kept} SNPs pass QC")
+    out = os.path.join(d, "out")
+    printed, _, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lmm",
+                                    "-force-model", "-n", "0", "-o", out], "phase 5")
     require("lambda_null=" in printed, "λ_null was not printed")
     require(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     header, rows = read_tsv(os.path.join(out, "jx.test0.LMM.assoc.tsv"))
@@ -360,12 +452,14 @@ def run_main_path(d: str, m: int):
     say("phase 5 stages (s): " + ", ".join(f"{k}={v:.3f}" for k, v in st.items())
         + f"; scan {len(rows) / scan:.0f} SNPs/s; {sig}/{N_QTL} QTLs at p < 5e-8; "
         f"launches {launches}")
-    return prefix, pheno, rows, summary, launches
+    return prefix, pheno, rows, summary, launches, qtl_ids, Y
 
 
-def cross_check(prefix: str, pheno: str, rows, summary) -> None:
+def cross_check(prefix: str, pheno: str, rows, summary) -> dict:
     """The first CROSS_SNPS QC'd SNPs rescanned with the plain versions on
-    the CPU, from the same cached GRM and the same eigendecomposition."""
+    the CPU, from the same cached GRM and the same eigendecomposition.
+    Returns the CPU side (the analysis samples' packed genotypes and basis)
+    for the later phases' rescans."""
     from janusx_tpu_torch.core.spectral import eigh_grm
     from janusx_tpu_torch.io.gfreader import load_raw_packed
     from janusx_tpu_torch.io.packed import QcParams
@@ -383,23 +477,180 @@ def cross_check(prefix: str, pheno: str, rows, summary) -> None:
     pg = raw.prepare(qc, sample_idx=keep)
     basis = eigh_grm(K[np.ix_(keep, keep)], diag_ridge=1e-6)
     k = min(CROSS_SNPS, pg.m)
-    res, null = lmm_scan(pg.take_snps(np.arange(k)), basis, y_all[keep, 0],
-                         device="cpu")
+    head = pg.take_snps(np.arange(k))
+    res, null = lmm_scan(head, basis, y_all[keep, 0], device="cpu")
     card = rows[:k]
     require([r[2] for r in card] == list(res.sites.snp), "cross-check SNP rows differ")
-    lp_card = -np.log10(np.array([float(r[10]) for r in card]))
-    lp_cpu = -np.log10(res.pwald)
-    dmax = float(np.max(np.abs(lp_card - lp_cpu)))
-    require(dmax <= 0.05, f"cross-check max Δ(-log10 p) {dmax:.4g} > 0.05")
-    top_card = set(np.argsort(-lp_card, kind="stable")[:5])
-    top_cpu = set(np.argsort(-lp_cpu, kind="stable")[:5])
-    require(top_card == top_cpu, "cross-check top-5 SNPs differ")
+    dmax = agree([float(r[10]) for r in card], res.pwald, "phase 6 cross-check", 0.05)
     lam_card = summary["runs"][0]["lambda_null"]
     rel = abs(null.lbd - lam_card) / lam_card
     require(rel <= 2e-3, f"cross-check λ_null {null.lbd:.6g} vs {lam_card:.6g}")
     say(f"phase 6 cross-check {k} SNPs on cpu: max Δ(-log10 p)={dmax:.3g}, top-5 equal, "
         f"λ_null card={lam_card:.6g} cpu={null.lbd:.6g} (rel {rel:.2g}); "
         f"{time.monotonic() - t0:.2f} s")
+    return dict(keep=keep, pg=pg, head=head, basis=basis)
+
+
+def write_traits(prefix: str, Y, cpu) -> tuple:
+    """The trait-level phenotype: phase 5's trait test0, three more
+    polygenic traits and one with no polygenic signal, all on the same
+    phenotyped samples. The last is noise, drawn until the LMM->LM switch
+    test sends it to LM, as it does 95 % of pure-noise draws. Returns the
+    file and the traits (N_SAMPLES, 5)."""
+    from janusx_tpu_torch.workflows.gwas import lmm_to_lm_switch_p
+
+    rng = np.random.default_rng(7)
+    keep = cpu["keep"]
+    while True:
+        flat = np.where(np.isnan(Y[:, 0]), np.nan, 10.0 + rng.normal(size=len(Y)))
+        if lmm_to_lm_switch_p(cpu["basis"], flat[keep], None) >= 0.05:
+            break
+    Y = np.column_stack([Y, flat])
+    path = prefix + ".traits.pheno"
+    with open(path, "wt") as fh:
+        fh.write("ID\t" + "\t".join(TRAITS) + "\n")
+        for j, row in enumerate(Y):
+            fh.write(f"ind{j}\t" + "\t".join("NA" if np.isnan(v) else f"{v:.6f}"
+                                              for v in row) + "\n")
+    return path, Y
+
+
+def run_trait_level(d: str, prefix: str, Y, rows5, cpu) -> dict:
+    """Phase 7: ``jx gwas -lm -lmm -lmm2 -fvlmm -trait-level`` over five
+    traits (no -force-model) on the whole panel. Returns the launches."""
+    from janusx_tpu_torch.models import fvlmm, lm, lmm
+    from janusx_tpu_torch.models.lmm import lattice_superblock
+
+    t0 = time.monotonic()
+    pheno, Y = write_traits(prefix, Y, cpu)
+    out = os.path.join(d, "out7")
+    _, wall, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lm", "-lmm",
+                                 "-lmm2", "-fvlmm", "-trait-level", "-o", out], "phase 7")
+    with open(os.path.join(out, "jx.gwas.summary.json")) as fh:
+        summary = json.load(fh)
+    runs = {(r["trait"], r["requested"]): r for r in summary["runs"]}
+    require(len(runs) == len(TRAITS) * len(MODELS), f"runs {sorted(runs)}")
+    flat = [runs[(TRAITS[-1], m)]["model"] for m in MODELS]
+    require(flat == ["lm"] * 4, f"the trait with no polygenic signal ran {flat}, not LM")
+    for t in TRAITS[:-1]:
+        ran = [runs[(t, m)]["model"] for m in MODELS]
+        require(ran == list(MODELS), f"trait {t} ran {ran}")
+    # one K1 launch per superblock for the whole trait batch: the T = 4
+    # lattice route (lmm, lmm2) in its own superblocks, fvlmm in one
+    m = len(rows5)
+    sb4 = -(-m // lattice_superblock(N_PHENO, GRID, 2048, traits=4))
+    want = {"decode_rotate": 2 * sb4 + -(-m // (1 << 20)),
+            "grid_neg_reml_lattice": 2 * sb4}
+    require(launches == want, f"launches {launches}, expected {want} (one per "
+                              f"superblock for all {len(TRAITS) - 1} traits)")
+    # rectangular trait-level TSVs, grouped by header
+    for name in ("traitlevel", "traitlevel.lmm2"):
+        with open(os.path.join(out, f"jx.{name}.assoc.tsv")) as fh:
+            ncol = fh.readline().count("\t")
+            bad = sum(1 for ln in fh if ln.count("\t") != ncol)
+        require(bad == 0, f"jx.{name}.assoc.tsv: {bad} rows of another width")
+    # the trait-level LMM of phase 5's trait against phase 5's own TSV
+    header, rows = read_tsv(os.path.join(out, "jx.test0.LMM.assoc.tsv"))
+    require([r[2] for r in rows] == [r[2] for r in rows5], "test0 SNP rows differ")
+    d5 = agree(p_col(rows, header), [float(r[10]) for r in rows5],
+               "phase 7 test0 vs phase 5", 5e-3)
+    say(f"phase 7 stages (s): {stage_line(summary)}")
+    # CPU rescan of the first CROSS_SNPS SNPs of every model
+    t1 = time.monotonic()
+    keep, head, basis = cpu["keep"], cpu["head"], cpu["basis"]
+    k = head.m
+    Yk = Y[keep]
+    Ym = Yk[:, :-1]
+    lms = lm.lm_scan_multi(head, Yk, device="cpu")
+    lmm2s = lmm.lmm_scan_multi(head, basis, Ym, lmm2=True, device="cpu")[0]
+    fvs = fvlmm.fvlmm_scan_multi(head, basis, Ym, device="cpu")[0]
+    worst = 0.0
+    for ti, t in enumerate(TRAITS):
+        # the switched trait's runs are its LM scan under each model's tag
+        mixed = (lambda res: lms[ti]) if t == TRAITS[-1] else (lambda res: res[ti])
+        for tag, r in (("LM", lms[ti]), ("LMM", mixed(lmm2s)), ("LMM2", mixed(lmm2s)),
+                       ("FvLMM", mixed(fvs))):
+            header, rows = read_head(os.path.join(out, f"jx.{t}.{tag}.assoc.tsv"), k)
+            require([x[2] for x in rows] == list(r.sites.snp), f"{t} {tag}: SNP rows differ")
+            for col in ("pwald", "plrt"):
+                if col in header.split("\t"):
+                    worst = max(worst, agree(p_col(rows, header, col), getattr(r, col),
+                                             f"phase 7 {t} {tag} {col}", 0.05))
+    say(f"phase 7 trait-level: {len(TRAITS)} traits x {len(MODELS)} models, "
+        f"{TRAITS[-1]} switched to LM, launches {launches} ({sb4} T=4 superblocks), "
+        f"test0 vs phase 5 max Δ(-log10 p)={d5:.3g}; cpu rescan of {k} SNPs, every "
+        f"model: max Δ(-log10 p)={worst:.3g}, top-5 equal ({time.monotonic() - t1:.2f} s); "
+        f"cli {wall:.2f} s, phase {time.monotonic() - t0:.2f} s")
+    return launches
+
+
+def run_routes(d: str, prefix: str, pheno: str, rows5, qtl_ids, Y, cpu) -> dict:
+    """Phase 8: the other routes on a -bimrange window of ~30,000 SNPs:
+    -lmm -scan-method brent held to phase 5's grid rows, then -lm2 -fvlmm2
+    -farmcpu with a covariate file, held to CPU rescans."""
+    from janusx_tpu_torch.io.pheno import load_covariates
+    from janusx_tpu_torch.models import farmcpu, gxe
+
+    t0 = time.monotonic()
+    out = os.path.join(d, "out8b")
+    _, wall, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lmm",
+                                 "-scan-method", "brent", "-bimrange", WINDOW, "-n", "0",
+                                 "-o", out], "phase 8 brent")
+    require(launches["decode_rotate"] > 0 and launches["grid_neg_reml_lattice"] == 0,
+            f"brent launches {launches}")
+    header, rows = read_tsv(os.path.join(out, "jx.test0.LMM.assoc.tsv"))
+    grid = {r[2]: float(r[10]) for r in rows5}
+    require(len(rows) > M_SNPS // 60 and all(r[2] in grid for r in rows),
+            f"the window holds {len(rows)} SNPs of phase 5's")
+    db = agree(p_col(rows, header), [grid[r[2]] for r in rows],
+               "phase 8 brent vs grid", 5e-3)
+    say(f"phase 8 brent: {len(rows)} SNPs, max Δ(-log10 p) vs phase 5's grid "
+        f"{db:.3g}, launches {launches}, cli {wall:.2f} s")
+
+    rng = np.random.default_rng(8)
+    cov_path = prefix + ".cov"
+    with open(cov_path, "wt") as fh:
+        fh.write("ID\tc0\tc1\n")
+        fh.writelines(f"ind{j}\t{a:.6f}\t{1.5 + b:.6f}\n"
+                      for j, (a, b) in enumerate(rng.normal(size=(N_SAMPLES, 2))))
+    out = os.path.join(d, "out8g")
+    _, wall_g, _ = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lm2", "-fvlmm2",
+                            "-farmcpu", "-c", cov_path, "-bimrange", WINDOW, "-n", "0",
+                            "-o", out], "phase 8 lm2/fvlmm2/farmcpu")
+    keep, pg, basis = cpu["keep"], cpu["pg"], cpu["basis"]
+    # a set, not np.isin: on object arrays np.isin compares element by element
+    window = {r[2] for r in rows}
+    idx = np.array([i for i, snp in enumerate(pg.sites.snp) if snp in window])
+    win = pg.take_snps(idx)
+    cov = load_covariates(cov_path, np.array([f"ind{j}" for j in range(N_SAMPLES)],
+                                             object))[keep]
+    y = Y[keep, 0]
+    k = min(4096, win.m)
+    head = win.take_snps(np.arange(k))
+    cpu_res = {"LM2": gxe.gxe_scan(head, y, cov[:, 1], cov[:, :1], device="cpu")[0],
+               "FvLMM2": gxe.gxe_scan(head, y, cov[:, 1], cov[:, :1], basis=basis,
+                                      device="cpu")[0],
+               "FarmCPU": farmcpu.farmcpu_scan(win, y, cov).result}
+    worst = 0.0
+    for tag, res in cpu_res.items():
+        path = os.path.join(out, f"jx.test0.{tag}.assoc.tsv")
+        header, rows = read_tsv(path) if tag == "FarmCPU" else read_head(path, k)
+        require([r[2] for r in rows] == list(res.sites.snp), f"{tag}: SNP rows differ")
+        cols = [c for c in ("pwald", "pwald_i1", "p_int_joint", "p_joint")
+                if c in header.split("\t")]
+        for col in cols:
+            cpu_p = res.pwald if col == "pwald" else res.extra_cols[col]
+            worst = max(worst, agree(p_col(rows, header, col), cpu_p,
+                                     f"phase 8 {tag} {col}", 0.05))
+        if tag == "FarmCPU":
+            sig = sum(1 for r in rows if r[2] in qtl_ids and float(r[10]) < 5e-8)
+    with open(os.path.join(out, "jx.gwas.summary.json")) as fh:
+        summary = json.load(fh)
+    say(f"phase 8 stages (s): {stage_line(summary)}")
+    say(f"phase 8 lm2/fvlmm2/farmcpu: {win.m} SNPs; cpu rescan (gxe {k} SNPs, farmcpu "
+        f"the window) max Δ(-log10 p)={worst:.3g}, top-5 equal; FarmCPU {sig} planted "
+        f"QTLs at p < 5e-8; cli {wall_g:.2f} s, phase {time.monotonic() - t0:.2f} s")
+    return launches
 
 
 def check_kernels(dev) -> dict:
@@ -417,22 +668,27 @@ def check_kernels(dev) -> dict:
     # the main path launches each kernel once per resident superblock of
     # SNPs; the 2048-row block is the reference's per-block launch shape
     rows = lattice_superblock(N_PHENO, GRID, config.DEFAULT_SNP_BLOCK)
-    basis, y, rng = _basis(N_PHENO, seed=1)
-    basis_r, y_r, rng_r = _basis(997, seed=2)
+    basis, ys, rng = _basis(N_PHENO, seed=1, traits=4)
+    basis_r, ys_r, rng_r = _basis(997, seed=2, traits=3)
     k1 = [check_k1(dev, rows, N_PHENO, basis.U, seed=11, timed=True),
           check_k1(dev, 2048, N_PHENO, basis.U, seed=12, timed=True),
           check_k1(dev, 1000, 997, basis_r.U, seed=13, timed=False),
           check_k1(dev, 2048, N_PHENO, rng.normal(size=(N_PHENO, N_PHENO)) / N_PHENO ** 0.5,
                    seed=14, timed=False, random_u=True)]
-    k2 = [check_k2(dev, basis, y, rng, rows, GRID, 1, seed=21, timed=True),
-          check_k2(dev, basis, y, rng, 2048, GRID, 1, seed=22, timed=True),
-          check_k2(dev, basis, y, rng, 2048, GRID, 3, seed=23, timed=False)]
-    k2.append(check_k2(dev, basis_r, y_r, rng_r, 1000, 200, 2, seed=24, timed=False))
+    k2 = [check_k2(dev, basis, ys[:1], rng, rows, GRID, 1, seed=21, timed=True),
+          check_k2(dev, basis, ys[:1], rng, 2048, GRID, 1, seed=22, timed=True),
+          check_k2(dev, basis, ys[:1], rng, 2048, GRID, 3, seed=23, timed=False)]
+    k2.append(check_k2(dev, basis_r, ys_r[:1], rng_r, 1000, 200, 2, seed=24, timed=False))
+    # the trait axis: T = 4 at the single-trait superblock's launch shape
+    # (the T = 4 scan's own superblocks are smaller), and ragged T = 3
+    k2t = [check_k2(dev, basis, ys, rng, rows, GRID, 1, seed=25, timed=True),
+           check_k2(dev, basis_r, ys_r, rng_r, 1000, 200, 2, seed=26, timed=False)]
     k1_err = {m: max(r[m][0] for r in k1) for m in ("highest", "high")}
     return dict(k1_err=k1_err["highest"], k1_ms=k1[0]["highest"][1],
                 k1_plain=k1[0]["highest"][2], k1_high_err=k1_err["high"],
                 k1_high_ms=k1[0]["high"][1], k1_high_plain=k1[0]["high"][2],
-                k2_err=max(r[0] for r in k2), k2_ms=k2[0][1], k2_plain=k2[0][2])
+                k2_err=max(r[0] for r in k2 + k2t), k2_ms=k2[0][1], k2_plain=k2[0][2],
+                k2_t4_err=k2t[0][0], k2_t4_ms=k2t[0][1], k2_t4_plain=k2t[0][2])
 
 
 # ------------------------------------------------------------ main
@@ -448,6 +704,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     os.environ["JX_TPU_PLATFORM"] = "cuda"
+    os.environ["JX_TPU_HISTORY_DB"] = "0"  # no run-history database outside the run
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -456,11 +713,23 @@ def main() -> int:
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}; TF32 off")
 
+    t0 = time.monotonic()
     k = check_kernels(dev)
-
+    walls = {"kernels": time.monotonic() - t0}
     with tempfile.TemporaryDirectory(prefix="jx_smoke_") as d:
-        prefix, pheno, rows, summary, launches = run_main_path(d, M_SNPS)
-        cross_check(prefix, pheno, rows, summary)
+        t0 = time.monotonic()
+        prefix, pheno, rows, summary, launches, qtl_ids, Y = run_main_path(d, M_SNPS)
+        cpu = cross_check(prefix, pheno, rows, summary)
+        walls["lmm"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        paths = {"lmm": launches,
+                 "trait_level": run_trait_level(d, prefix, Y, rows, cpu)}
+        walls["trait_level"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        paths["brent"] = run_routes(d, prefix, pheno, rows, qtl_ids, Y, cpu)
+        walls["routes"] = time.monotonic() - t0
+    say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
+    by_path = lambda name: {p: c[name] for p, c in paths.items()}
 
     src = "janusx_tpu_torch/csrc/"
     ref = "janusx_tpu/ops/pallas_kernels.py:"
@@ -470,10 +739,16 @@ def main() -> int:
          "max_abs_err": k["k1_err"], "ms": k["k1_ms"], "plain_ms": k["k1_plain"],
          # the same kernel in its "high" (bf16x3) mode, off the main path's default
          "high_max_abs_err": k["k1_high_err"], "high_ms": k["k1_high_ms"],
-         "high_plain_ms": k["k1_high_plain"]},
+         "high_plain_ms": k["k1_high_plain"],
+         "launches_by_path": by_path("decode_rotate")},
         {"name": "grid_neg_reml_lattice", "route": "cuda", "source": src + "lattice.cu",
          "replaces": ref + "232", "launches": launches["grid_neg_reml_lattice"],
-         "max_abs_err": k["k2_err"], "ms": k["k2_ms"], "plain_ms": k["k2_plain"]},
+         "max_abs_err": k["k2_err"], "ms": k["k2_ms"], "plain_ms": k["k2_plain"],
+         # the same kernel over a trait axis of 4 (its plain version: the
+         # reference's loop, one single-trait lattice per trait)
+         "t4_max_abs_err": k["k2_t4_err"], "t4_ms": k["k2_t4_ms"],
+         "t4_plain_ms": k["k2_t4_plain"],
+         "launches_by_path": by_path("grid_neg_reml_lattice")},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
 """`jx gwas` for the port: the reference CLI surface (build_parser is a
-copy of janusx_tpu/cli/gwas.py's), running the ported ``-lmm`` route.
-Flags that select a route not ported yet raise NotImplementedError."""
+copy of janusx_tpu/cli/gwas.py's) and its main, running the dense-GRM
+routes (-lm, -lmm, -lmm2, -fvlmm, -lm2, -fvlmm2, -farmcpu, -frgwas) with
+-trait-level, -bimrange, -global and the -q* QTN panels. Flags that select
+a route not ported yet raise NotImplementedError naming their ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -111,12 +114,8 @@ def build_parser(prog="jx gwas", dev: bool = False) -> argparse.ArgumentParser:
     return p
 
 
-# model flags, and option flags whose route is not ported yet
-_UNPORTED_MODELS = ("lm", "lm2", "fvlmm2", "lmm2", "fvlmm", "farmcpu",
-                    "frgwas", "algwas", "fastlmm", "fast")
-_UNPORTED_OPTIONS = ("splmm", "splmm_exact", "lowrank", "global_stats",
-                     "bimrange", "trait_level", "qtn_vcf", "qtn_hmp",
-                     "qtn_bfile", "qtn_file")
+# flags that select a route not ported yet, with their ROADMAP queue 1 item
+_UNPORTED = {"splmm": 17, "splmm_exact": 17, "lowrank": 16, "algwas": 15}
 
 
 def main(argv=None) -> int:
@@ -126,14 +125,34 @@ def main(argv=None) -> int:
     dev = "-dev" in raw_argv or "--dev" in raw_argv
     raw_argv = [a for a in raw_argv if a not in ("-dev", "--dev")]
     args = build_parser(dev=dev).parse_args(raw_argv)
-    unported = [f for f in _UNPORTED_MODELS if getattr(args, f)]
-    unported += [f for f in _UNPORTED_OPTIONS if getattr(args, f) not in (None, False)]
-    if unported:
+    if args.fastlmm:
+        raise SystemExit(
+            "-fastlmm has been removed (reference workflow.py:6930): use "
+            "-lowrank [Q] for the FaST-LMM low-rank route, or -fvlmm for "
+            "the fixed-lambda scan")
+    if args.fast:
+        raise SystemExit(
+            "-fast has been removed (reference parse_args): use "
+            "model-specific routes (-fvlmm, -splmm, -lowrank)")
+    for flag, item in _UNPORTED.items():
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(
+                f"janusx_tpu_torch gwas: -{flag.replace('_', '-')} is not ported "
+                f"yet (ROADMAP queue 1, item {item})")
+    if args.grm_sparse not in ("1", "2"):
         raise NotImplementedError(
-            f"janusx_tpu_torch gwas: {unported} not ported yet (only -lmm "
-            "with -c/-q covariates is; see ROADMAP queue 1)")
-    if not args.lmm:
-        raise SystemExit("select -lmm (the only model janusx_tpu_torch runs yet)")
+            "janusx_tpu_torch gwas: a precomputed -spk file is not ported yet "
+            "(ROADMAP queue 1, item 17)")
+    if args.farmcpu_nbin < 1:
+        raise SystemExit("--farmcpu-nbin must be >= 1.")
+    if getattr(args, "strict_train", False):
+        # strict per-trait re-preparation is the default here; the flag
+        # just forces -global off for reference drop-in command lines
+        args.global_stats = False
+    models = [m for m in ("lm", "lm2", "fvlmm2", "lmm", "lmm2", "fvlmm", "farmcpu",
+                          "frgwas") if getattr(args, m)]
+    if not models:
+        raise SystemExit("select at least one model (-lm/-lmm/-lmm2/-fvlmm/-farmcpu)")
     common.apply_mem_budget(args)
     prefix = common.out_prefix(args)
     common.setup_logging(args.verbose, prefix, "gwas")
@@ -144,7 +163,7 @@ def main(argv=None) -> int:
         genotype=common.resolve_genotype(args),
         phenotype=args.pheno,
         out_prefix=prefix,
-        models=("lmm",),
+        models=tuple(models),
         traits=common.parse_traits(args.ncol),
         covariates=args.cov,
         n_pcs=args.qcov,
@@ -153,12 +172,24 @@ def main(argv=None) -> int:
         het=args.het,
         grm_method=args.grm_method,
         force_model=args.force_model,
+        global_stats=args.global_stats,
+        scan_ranges=tuple(args.bimrange or ()),
         scan_method=args.scan_method,
+        trait_level=args.trait_level,
+        farmcpu_iter=args.farmcpu_iter,
+        farmcpu_threshold=args.farmcpu_threshold,
+        farmcpu_qtn_bound=args.farmcpu_qtn_bound,
+        farmcpu_nbin=args.farmcpu_nbin,
+        farmcpu_bin_sizes=tuple(
+            int(float(x)) for x in args.farmcpu_bin_size.split(",") if x.strip()
+        ),
+        qtn_genotype=(args.qtn_vcf or args.qtn_hmp or args.qtn_bfile
+                      or args.qtn_file),
     )
     for r in run_gwas(cfg):
+        lam = "-" if r.lambda_null is None else f"{r.lambda_null:.6g}"
         print(
             f"{r.trait}\t{r.model}\tn={r.n_samples}\tm={r.n_snps}\t"
-            f"lambda_null={r.lambda_null:.6g}\t{r.seconds:.2f}s\t"
-            f"{r.tsv_path}"
+            f"lambda_null={lam}\t{r.seconds:.2f}s\t{r.tsv_path or '-'}"
         )
     return 0

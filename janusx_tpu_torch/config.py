@@ -54,7 +54,9 @@ def cache_dir_override() -> str | None:
 KNOBS: dict = {
     "JX_TPU_PLATFORM": (str, None, "device: cpu pins the CPU (plain PyTorch); anything else or unset means cuda (raises without a card)"),
     "JX_TPU_SNP_BLOCK": (int, 2048, "SNP rows per device block in streamed kernels"),
-    "JX_TPU_SCAN_METHOD": (str, "grid", "LMM per-SNP lambda search: grid (brent is not ported yet)"),
+    "JX_TPU_SCAN_METHOD": (str, "grid", "LMM per-SNP lambda search: grid | brent"),
+    "JX_TPU_SCAN_BRENT_TOL": (float, 1e-2, "per-SNP Brent tolerance (reference lmm.rs:334)"),
+    "JX_TPU_SCAN_BRENT_MAX_ITER": (int, 50, "per-SNP Brent iteration cap"),
     "JX_TPU_GRID_POINTS": (int, 256, "shared log10-lambda grid size for the grid scan"),
     "JX_TPU_NULL_BRENT_TOL": (float, 1e-6, "null-REML Brent tolerance (reference reml.rs:650)"),
     "JX_TPU_NULL_BRENT_MAX_ITER": (int, 100, "null-REML Brent iteration cap"),
@@ -129,6 +131,8 @@ def set_full_f32_matmul() -> None:
 
 
 NULL_BRENT_MAX_ITER = knob("JX_TPU_NULL_BRENT_MAX_ITER")
+SCAN_BRENT_MAX_ITER = knob("JX_TPU_SCAN_BRENT_MAX_ITER")
+SCAN_BRENT_TOL = knob("JX_TPU_SCAN_BRENT_TOL")
 NULL_BRENT_TOL = knob("JX_TPU_NULL_BRENT_TOL")
 LOG10_LAMBDA_LOW = knob("JX_TPU_LAMBDA_LOW")
 LOG10_LAMBDA_HIGH = knob("JX_TPU_LAMBDA_HIGH")

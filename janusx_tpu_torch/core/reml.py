@@ -80,22 +80,91 @@ def make_rotated(basis: SpectralBasis, y: np.ndarray, X_cov: np.ndarray | None,
 
 
 def _chol_pieces(M_ridged: torch.Tensor, rhs: torch.Tensor):
-    """Batched Cholesky solve + logdet: M_ridged (B, q, q), rhs (B, q) ->
-    (beta, logdet, bad). Failed factorizations are flagged, not raised."""
+    """Batched Cholesky solve + logdet + (A^-1)_kk of the last index:
+    M_ridged (B, q, q), rhs (B, q) -> (beta, logdet, inv_kk, bad). Failed
+    factorizations are flagged, not raised."""
     L, info = torch.linalg.cholesky_ex(M_ridged)
     diag = torch.diagonal(L, dim1=-2, dim2=-1)
     bad = (info != 0) | torch.any(~torch.isfinite(diag) | (diag <= 0), dim=-1)
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    q = L.shape[-1]
+    eye = torch.eye(q, dtype=L.dtype, device=L.device)
     Ls = torch.where(bad[:, None, None], eye, L)
     beta = torch.cholesky_solve(rhs[..., None], Ls)[..., 0]
     logdet = 2.0 * torch.sum(
         torch.log(torch.where(bad[:, None], torch.ones_like(diag), diag)), dim=-1)
-    return beta, logdet, bad
+    # (A^-1)_kk for the last coordinate: || L^-1 e_k ||^2
+    ek = eye[q - 1].expand(rhs.shape)[..., None]
+    zk = torch.linalg.solve_triangular(Ls, ek, upper=False)[..., 0]
+    return beta, logdet, torch.sum(zk * zk, dim=-1), bad
 
 
 def _quad_rtwr(M, rhs, ayy, beta):
     return (ayy - 2.0 * torch.sum(beta * rhs, dim=-1)
             + torch.einsum("bi,bij,bj->b", beta, M, beta))
+
+
+# ------------------------------------------- per-SNP objective (brent route)
+def _snp_grams(log10_lbd: torch.Tensor, rot: RotatedData, Gr: torch.Tensor):
+    """f64 weighted Gram pieces of the per-SNP design [X, g] at per-lane λ:
+    log10_lbd (B,), Gr (B, n) f64 -> (M (B, p+1, p+1), rhs (B, p+1), ayy,
+    logdetV, valid)."""
+    lbd = torch.pow(10.0, log10_lbd)
+    v = rot.s[None, :] + lbd[:, None]  # (B, n)
+    valid = torch.all(v > 0, dim=-1) & torch.isfinite(lbd) & (lbd > 0)
+    vsafe = torch.where(v > 0, v, torch.ones_like(v))
+    w = 1.0 / vsafe
+    logdetV = torch.sum(torch.log(vsafe), dim=-1)
+    p = rot.p
+    Axx = (w @ rot.PXX).reshape(-1, p, p)
+    axy = w @ rot.PXy
+    ayy = w @ rot.Pyy
+    wg = w * Gr
+    axg = wg @ rot.Xr
+    agy = wg @ rot.yr
+    agg = torch.sum(wg * Gr, dim=-1)
+    top = torch.cat([Axx, axg[:, :, None]], dim=2)  # (B, p, p+1)
+    bot = torch.cat([axg, agg[:, None]], dim=1)[:, None, :]
+    M = torch.cat([top, bot], dim=1)  # (B, p+1, p+1)
+    rhs = torch.cat([axy, agy[:, None]], dim=1)
+    return M, rhs, ayy, logdetV, valid
+
+
+def _snp_solve(log10_lbd, rot: RotatedData, Gr):
+    M, rhs, ayy, logdetV, valid = _snp_grams(log10_lbd, rot, Gr)
+    beta, logdetA, inv_kk, badchol = _chol_pieces(_ridged(M), rhs)
+    return beta, _quad_rtwr(M, rhs, ayy, beta), logdetV, logdetA, inv_kk, valid & ~badchol
+
+
+def neg_reml_snp_batch(log10_lbd: torch.Tensor, rot: RotatedData, Gr: torch.Tensor):
+    """-REML(log10 λ) per SNP lane; invalid lanes return +1e8."""
+    _, rtwr, logdetV, logdetA, _, ok = _snp_solve(log10_lbd, rot, Gr)
+    nf, pf = float(rot.n), float(rot.p + 1)
+    c = (nf - pf) * (math.log(nf - pf) - 1.0 - math.log(2.0 * math.pi)) / 2.0
+    reml = c - 0.5 * ((nf - pf) * torch.log(rtwr) + logdetV + logdetA)
+    ok = ok & torch.isfinite(reml) & (rtwr > 0)
+    return torch.where(ok, -reml, torch.full_like(reml, _BAD))
+
+
+def ml_snp_batch(log10_lbd: torch.Tensor, rot: RotatedData, Gr: torch.Tensor):
+    """ML loglik per SNP lane (the LMM2 LRT); invalid lanes -> -1e8."""
+    _, rtwr, logdetV, _, _, ok = _snp_solve(log10_lbd, rot, Gr)
+    nf = float(rot.n)
+    c = nf * (math.log(nf) - 1.0 - math.log(2.0 * math.pi)) / 2.0
+    ml = c - 0.5 * (nf * torch.log(rtwr) + logdetV)
+    ok = ok & torch.isfinite(ml) & (rtwr > 0)
+    return torch.where(ok, ml, torch.full_like(ml, -_BAD))
+
+
+def beta_se_snp_batch(log10_lbd: torch.Tensor, rot: RotatedData, Gr: torch.Tensor):
+    """Final (beta, se) of the SNP term at the per-lane optimum λ: σ² from
+    the profiled quadratic with dof n-p', var(β_k) = σ² (A_ridged^-1)_kk
+    (janusx_tpu/core/reml.py:199-216)."""
+    beta, rtwr, _, _, inv_kk, ok = _snp_solve(log10_lbd, rot, Gr)
+    var_k = rtwr / (float(rot.n) - float(rot.p + 1)) * inv_kk
+    ok = ok & (var_k > 0) & torch.isfinite(var_k)
+    nan = torch.full_like(var_k, float("nan"))
+    return (torch.where(ok, beta[:, -1], nan),
+            torch.where(ok, torch.sqrt(torch.where(ok, var_k, torch.ones_like(var_k))), nan))
 
 
 # ------------------------------------------------------------- grid scan
@@ -193,6 +262,12 @@ def lmm_grid_scan_with(sh: GridShared, rot: RotatedData, Gr: torch.Tensor):
     A = E @ sh.w32.T  # ((2+p)B, G)
     axg = torch.stack([A[(2 + k) * B:(3 + k) * B] for k in range(p)], dim=-1)
     return grid_argmin_schur(sh, A[:B], A[B:2 * B], axg, n)
+
+
+def lmm_grid_scan(rot: RotatedData, Gr: torch.Tensor, grid_lg: torch.Tensor):
+    """Per-SNP λ* over a shared log10-λ grid: grid_shared then
+    lmm_grid_scan_with. Returns lg_star (B,) f64."""
+    return lmm_grid_scan_with(grid_shared(rot, grid_lg), rot, Gr)
 
 
 def final_grams_f32(rot: RotatedData, Gr32: torch.Tensor,
@@ -295,7 +370,7 @@ def _ridged(M):
 def neg_reml_null(log10_lbd: torch.Tensor, rot: RotatedData):
     n, p = rot.n, rot.p
     M, rhs, ayy, logdetV, valid = _null_grams(log10_lbd, rot)
-    beta, logdetA, badchol = _chol_pieces(_ridged(M), rhs)
+    beta, logdetA, _, badchol = _chol_pieces(_ridged(M), rhs)
     rtwr = _quad_rtwr(M, rhs, ayy, beta)
     nf, pf = float(n), float(p)
     c = (nf - pf) * (math.log(nf - pf) - 1.0 - math.log(2.0 * math.pi)) / 2.0
@@ -307,7 +382,7 @@ def neg_reml_null(log10_lbd: torch.Tensor, rot: RotatedData):
 def ml_null(log10_lbd: torch.Tensor, rot: RotatedData):
     n = rot.n
     M, rhs, ayy, logdetV, valid = _null_grams(log10_lbd, rot)
-    beta, _, badchol = _chol_pieces(_ridged(M), rhs)
+    beta, _, _, badchol = _chol_pieces(_ridged(M), rhs)
     rtwr = _quad_rtwr(M, rhs, ayy, beta)
     nf = float(n)
     c = nf * (math.log(nf) - 1.0 - math.log(2.0 * math.pi)) / 2.0
@@ -322,7 +397,7 @@ def null_fit_stats(rot: RotatedData, log10_lbd: float):
     RotatedData), sigma2 = rtWr/(n-p) is the meaningful output."""
     lg = torch.tensor([log10_lbd], dtype=f64, device=rot.s.device)
     M, rhs, ayy, _, _ = _null_grams(lg, rot)
-    beta, _, _ = _chol_pieces(_ridged(M), rhs)
+    beta, _, _, _ = _chol_pieces(_ridged(M), rhs)
     rtwr = _quad_rtwr(M, rhs, ayy, beta)
     return beta[0].cpu().numpy(), float(rtwr[0]) / (rot.n - rot.p)
 

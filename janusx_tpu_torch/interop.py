@@ -1,9 +1,11 @@
 """State carried across from janusx_tpu to the port.
 
-The reference's ``RotatedData`` / ``GridShared`` / ``SpectralBasis`` are
-read field by field through ``np.asarray`` (so this module never imports
-JAX) and rebuilt as the port's tensors, keeping each field's dtype. The
-parity tests use these to run both packages from the same state.
+The reference's ``RotatedData`` / ``GridShared`` / ``SpectralBasis`` /
+``NullFit`` are read field by field through ``np.asarray`` (so this module
+never imports JAX) and rebuilt as the port's, keeping each field's dtype;
+the multi-trait scan's stacked state (a leading trait axis on every field)
+comes across as the port's per-trait lists. The parity tests use these to
+run both packages from the same state.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from janusx_tpu_torch import config
-from janusx_tpu_torch.core.reml import GridShared, RotatedData
+from janusx_tpu_torch.core.reml import GridShared, NullFit, RotatedData
 from janusx_tpu_torch.core.spectral import SpectralBasis
 
 
@@ -36,3 +38,18 @@ def basis_from_numpy(basis) -> SpectralBasis:
     """janusx_tpu.core.spectral.SpectralBasis -> the port's (host arrays)."""
     return SpectralBasis(S=np.asarray(basis.S, np.float64),
                          U=np.asarray(basis.U, np.float64))
+
+
+def null_from_numpy(null) -> NullFit:
+    """janusx_tpu.core.reml.NullFit -> the port's (Python floats)."""
+    return NullFit(*(float(getattr(null, f)) for f in NullFit._fields))
+
+
+def unstack_from_numpy(stacked, convert, device=None) -> list:
+    """A reference NamedTuple with a leading trait axis on every field (the
+    stacked ``rots``/``shs`` of janusx_tpu's lmm_scan_multi) -> the port's
+    per-trait list, each converted by ``convert`` (rotated_from_numpy or
+    grid_shared_from_numpy)."""
+    T = np.asarray(stacked[0]).shape[0]
+    cls = type(stacked)
+    return [convert(cls(*(np.asarray(f)[t] for f in stacked)), device) for t in range(T)]

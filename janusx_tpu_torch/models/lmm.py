@@ -1,14 +1,21 @@
-"""Exact per-SNP REML LMM scan, grid method, single trait (port of
-janusx_tpu/models/lmm.py:lmm_scan).
+"""Exact per-SNP REML LMM scans, ``-lmm`` / ``-lmm2``, single and
+multi-trait, grid and brent methods (port of janusx_tpu/models/lmm.py).
 
-Over each resident superblock of SNPs the scan runs the two hand-written
-kernels (ops.kernels) once each: K1 decodes the packed genotypes and
-rotates them into the GRM eigenbasis, K2 evaluates the profiled -REML on
-the shared λ lattice. Then ``argmin_parabolic`` picks λ*, the f32 final
-grams are formed at λ*, and the f64 Schur epilogue gives beta/se and the
-device Wald p — the reference's lattice route. For p > 4 covariate
-columns (beyond the lattice kernel) each SNP block goes K1 ->
-``lmm_grid_scan_with`` instead, as the reference does.
+Grid method (the default). Over each resident superblock of SNPs the scan
+runs the two hand-written kernels (ops.kernels) once each, for all the
+traits it scans: K1 decodes the packed genotypes and rotates them into the
+GRM eigenbasis (the rotation is the same for every trait), K2 evaluates
+the profiled -REML of every trait on the shared λ lattice in one launch
+(the reference loops over traits, lmm.py:578-591). Then ``argmin_parabolic``
+picks each λ*, the f32 final grams are formed at λ* trait by trait, and one
+f64 Schur epilogue over (T, m) gives beta/se (and, for ``lmm2``, the ML
+loglik) and the device Wald p — the reference's lattice route. For p > 4
+covariate columns (beyond the lattice kernel) each SNP block goes K1 ->
+``lmm_grid_scan_with`` per trait instead, as the reference does.
+
+Brent method (``method="brent"``, lmm.py:51-73, 482-507): per SNP block K1
+rotates (f32, then f64), and a lockstep f64 Brent over log10 λ, warm-started
+at λ_null, optimizes the per-SNP REML; beta/se (and ML) come at the optimum.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from janusx_tpu_torch.core.reml import (
     NullFit,
     RotatedData,
     argmin_parabolic,
+    beta_se_snp_batch,
     final_grams_f32,
     final_stats_from_grams,
     fit_null_reml,
@@ -32,14 +40,18 @@ from janusx_tpu_torch.core.reml import (
     lmm_grid_scan_with,
     make_grid,
     make_rotated,
+    ml_snp_batch,
+    neg_reml_snp_batch,
 )
 from janusx_tpu_torch.core.spectral import SpectralBasis
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.scan_common import ScanResult, finalize_invalid
+from janusx_tpu_torch.models.superblocks import stream
 from janusx_tpu_torch.ops import kernels
+from janusx_tpu_torch.ops.brent import brent_minimize_batched
 from janusx_tpu_torch.utils import devcache
 
-f32 = torch.float32
+f32, f64 = torch.float32, torch.float64
 
 # largest covariate count (intercept included) the lattice kernel takes
 _LATTICE_MAX_P = 4
@@ -53,58 +65,175 @@ _SUPERBLOCK = 1 << 20
 
 
 def _lattice_operands(sh, rot: RotatedData):
-    """(W (G, n), YX (1+p, n), SH) f32 operands of the λ-lattice kernel;
-    the SH row layout is ops.kernels.pack_sh's."""
+    """(W (G, n), YX (1+p, n), SH) f32 operands of the λ-lattice kernel for
+    one trait; the SH row layout is ops.kernels.pack_sh's."""
     YX = torch.cat([rot.yr[None, :], rot.Xr.T], dim=0).to(f32).contiguous()
     SH = kernels.pack_sh(sh.Ar_inv32, sh.Ainv_axy32, sh.Axx32, sh.axy32,
                          sh.ayy32, sh.logdetAr32, sh.logdetV32)
     return sh.w32.contiguous(), YX, SH
 
 
+def _lattice_operands_multi(shs, rots):
+    """The kernel's operands for T traits that share the eigenbasis, the
+    covariates and the grid: W (G, n) and the Xr rows are the same for
+    every trait; YX (T + p, n) stacks the T yr rows over the Xr rows, SH
+    (T, R, G) each trait's rows."""
+    ops = [_lattice_operands(sh, rot) for sh, rot in zip(shs, rots)]
+    YX = torch.cat([torch.stack([o[1][0] for o in ops]), ops[0][1][1:]]).contiguous()
+    return ops[0][0], YX, torch.stack([o[2] for o in ops])
+
+
 def lattice_superblock(n: int, grid_points: int, block: int,
-                       superblock: int = _SUPERBLOCK) -> int:
-    """SNPs per resident chunk of the lattice route. It carries Gr (m, n)
-    f32 and the (m, G) lattice in device memory, so the chunk is bounded to
+                       superblock: int = _SUPERBLOCK, traits: int = 1) -> int:
+    """SNPs per resident chunk of the grid route. It carries Gr (m, n) f32
+    and the (T, m, G) lattice in device memory, so the chunk is bounded to
     ~2 GB of carry (the reference's formula, janusx_tpu/models/lmm.py:
-    407-412) and rounded down to whole blocks."""
+    407-412, with the T lattices counted) and rounded down to whole
+    blocks."""
     N2 = (-(-n // 256)) * 256
-    cap = (2 << 30) // ((N2 + grid_points) * 4)
+    cap = (2 << 30) // ((N2 + traits * grid_points) * 4)
     return max(min(superblock, (cap // block) * block), block)
 
 
-def _lmm_scan_resident(pk, mn, U32, U_split, rot: RotatedData, sh, n: int,
-                       rot_prec: str):
-    """Whole resident-chunk scan on pre-blocked (nblk, B, nb) packed rows.
-    Returns (beta, se, pwald) f64 tensors of nblk*B lanes."""
-    p = rot.p
+def _grid_resident(pk, mn, U32, U_split, rots, shs, n: int, with_ml: bool,
+                   rot_prec: str):
+    """Grid scan of T traits on pre-blocked (nblk, B, nb) packed rows.
+    Returns (beta, se, pwald, log10 λ*, ml), each (T, nblk*B) f64."""
+    T, p = len(rots), rots[0].p
     nblk, B = mn.shape
+    M = nblk * B
     if p <= _LATTICE_MAX_P:
-        # one launch of each kernel over the whole resident chunk: a single
-        # 2048-row block leaves a quarter of the card idle (csrc/rotate.cu)
-        W, YX, SH = _lattice_operands(sh, rot)
-        Gr = kernels.decode_rotate(pk.reshape(nblk * B, -1), mn.reshape(-1), U32,
+        # one launch of each kernel over the whole resident chunk and every
+        # trait: a single 2048-row block leaves a quarter of the card idle
+        # (csrc/rotate.cu)
+        W, YX, SH = _lattice_operands_multi(shs, rots)
+        Gr = kernels.decode_rotate(pk.reshape(M, -1), mn.reshape(-1), U32,
                                    prec=rot_prec, U_split=U_split)
         neg = kernels.grid_neg_reml_lattice(Gr, W, YX, SH, p=p,
                                             ridge=config.GRAM_RIDGE, nf=float(n))
-        lgs = argmin_parabolic(neg, sh.grid_lg)
-        ssq = torch.sum(Gr * Gr, dim=-1)
-        A1, A2, agg, ldV = final_grams_f32(rot, Gr, lgs, False)
+        lgs = argmin_parabolic(neg.reshape(T * M, -1), shs[0].grid_lg).reshape(T, M)
+        del neg
     else:
-        parts = []
+        Grs, lg_parts = [], []
         for i in range(nblk):
-            Gr32 = kernels.decode_rotate(pk[i], mn[i], U32, prec=rot_prec,
+            Gr_b = kernels.decode_rotate(pk[i], mn[i], U32, prec=rot_prec,
                                          U_split=U_split)
-            lgs_b = lmm_grid_scan_with(sh, rot, Gr32)
-            parts.append(final_grams_f32(rot, Gr32, lgs_b, False)
-                         + (torch.sum(Gr32 * Gr32, dim=-1),))
-        A1, A2, agg, ldV, ssq = (torch.cat(x) for x in zip(*parts))
-    beta, se, _ = final_stats_from_grams(n, p, A1, A2, agg, False, ldV)
+            lg_parts.append(torch.stack([lmm_grid_scan_with(sh, rot, Gr_b)
+                                         for sh, rot in zip(shs, rots)]))
+            Grs.append(Gr_b)
+        Gr, lgs = torch.cat(Grs), torch.cat(lg_parts, dim=1)
+    ssq = torch.sum(Gr * Gr, dim=-1)
+    # the final grams depend on each trait's λ*: formed trait by trait (a
+    # (T, m, n) weight tensor would not fit), then one f64 epilogue
+    grams = [final_grams_f32(rot, Gr, lgs[t], with_ml) for t, rot in enumerate(rots)]
+    A1, A2, agg, ldV = (torch.cat(x) for x in zip(*grams))
+    beta, se, ml = (x.reshape(T, M) for x in
+                    final_stats_from_grams(n, p, A1, A2, agg, with_ml, ldV))
     # monomorphic/degenerate lanes (reference rules, src/math/linalg.rs:99-108)
     bad = ~torch.isfinite(beta) | ~torch.isfinite(se) | (se <= 0) | (ssq <= 1e-12)
     nan = torch.full_like(beta, float("nan"))
     beta = torch.where(bad, nan, beta)
     se = torch.where(bad, nan, se)
-    return beta, se, jstats.pwald_from_beta_se_device(beta, se)
+    return beta, se, jstats.pwald_from_beta_se_device(beta, se), lgs, ml
+
+
+def _result(pg, null: NullFit, beta, se, pwald, ssq, lmm2: bool, lbd, ml) -> ScanResult:
+    """One trait's ScanResult with the reference's invalid-row rule; the
+    ``lmm2`` route adds lambda/ml/plrt (janusx_tpu/models/lmm.py:519-532)."""
+    if lmm2:
+        plrt = jstats.plrt_from_ml(ml, null.ml)
+        beta, se, pwald, plrt = finalize_invalid(beta, se, pwald, ssq, plrt)
+        return ScanResult(
+            sites=pg.sites, af=pg.af, miss=pg.miss, beta=beta, se=se,
+            pwald=pwald, plrt=plrt, lbd=lbd, ml=ml,
+            extras={"lambda_null": null.lbd, "ml_null": null.ml})
+    beta, se, pwald, _ = finalize_invalid(beta, se, pwald, ssq)
+    return ScanResult(sites=pg.sites, af=pg.af, miss=pg.miss, beta=beta, se=se,
+                      pwald=pwald, extras={"lambda_null": null.lbd})
+
+
+def _upload(pg, basis: SpectralBasis, block: int, dev):
+    """Device operands of a resident chunk: packed rows (nblk, block, nb),
+    means (nblk, block), U f32 and K1's bf16 pieces of U."""
+    m = pg.m
+    nblk = -(-m // block)
+    pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
+    mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
+    U32 = devcache.to_device(basis.U, f32, dev)
+    # made once per basis and device
+    U_split = devcache.derived(basis.U, "u_split", dev, lambda: kernels.split_u(U32))
+    return pk, mn, U32, U_split
+
+
+def _grid_scan(pg, basis: SpectralBasis, states, nulls, block: int, lmm2: bool,
+               superblock: int, dev) -> list[ScanResult]:
+    """Grid scan of the traits in ``states`` [(rot, grid_lg, sh)], one
+    ScanResult each; superblocks are capped so the T lattices fit."""
+    rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", kernels.ROTATE_PRECS)
+    rots = [s[0] for s in states]
+    shs = [s[2] for s in states]
+    T, n = len(states), pg.n
+    block = min(block, pg.m) if pg.m else block
+
+    def chunk(pg):
+        m = pg.m
+        pk, mn, U32, U_split = _upload(pg, basis, block, dev)
+        beta, se, pw, lgs, ml = _grid_resident(pk, mn, U32, U_split, rots, shs,
+                                               n, lmm2, rot_prec)
+        # one f32 stack to the host, as the reference ships it; λ* and ml
+        # only on the lmm2 route (lmm.py:474-479)
+        out = torch.stack([beta.to(f32), se.to(f32), pw.to(f32)])
+        out = out.cpu().numpy().astype(np.float64)[:, :, :m]
+        if lmm2:
+            lbd = 10.0 ** lgs.to(f32).cpu().numpy().astype(np.float64)[:, :m]
+            ml = ml.cpu().numpy()[:, :m]
+        res = []
+        for t in range(T):
+            beta_t, se_t, pwald = out[0, t], out[1, t], out[2, t]
+            # device f32 erfc is exact to ~1e-7 relative; lanes at/below the
+            # f32 underflow floor get the exact host value
+            tiny = pwald <= _PWALD_F32_FLOOR
+            if tiny.any():
+                pwald = pwald.copy()
+                pwald[tiny] = jstats.pwald_from_beta_se(beta_t[tiny], se_t[tiny])
+            # degenerate lanes are already sanitized on the device
+            res.append(_result(pg, nulls[t], beta_t, se_t, pwald, np.ones(m), lmm2,
+                               lbd[t] if lmm2 else None, ml[t] if lmm2 else None))
+        return res
+
+    grid_points = shs[0].grid_lg.shape[0]
+    return stream(pg, lattice_superblock(n, grid_points, block, superblock, T),
+                  block, chunk)
+
+
+def _brent_scan(pg, basis: SpectralBasis, rot: RotatedData, null: NullFit,
+                block: int, lmm2: bool, superblock: int, dev) -> ScanResult:
+    """Per-SNP lockstep Brent, one SNP block at a time (the reference's
+    cross-check path, janusx_tpu/models/lmm.py:51-73, 482-507)."""
+    block = min(block, pg.m) if pg.m else block
+
+    def chunk(pg):
+        m = pg.m
+        pk, mn, U32, U_split = _upload(pg, basis, block, dev)
+        init = torch.full((block,), null.log10_lbd, dtype=f64, device=dev)
+        parts = []
+        for i in range(pk.shape[0]):
+            # K1 computes the reference's f32 decode @ U (HIGHEST); the
+            # objective is f64
+            Gr = kernels.decode_rotate(pk[i], mn[i], U32, U_split=U_split).to(f64)
+            lgs, _ = brent_minimize_batched(
+                lambda lg: neg_reml_snp_batch(lg, rot, Gr),
+                config.LOG10_LAMBDA_LOW, config.LOG10_LAMBDA_HIGH,
+                config.SCAN_BRENT_TOL, config.SCAN_BRENT_MAX_ITER, init_x=init)
+            beta, se = beta_se_snp_batch(lgs, rot, Gr)
+            ml = ml_snp_batch(lgs, rot, Gr) if lmm2 else torch.zeros_like(lgs)
+            parts.append(torch.stack([lgs, beta, se, ml, torch.sum(Gr * Gr, dim=-1)]))
+        lgs, beta, se, ml, ssq = torch.cat(parts, dim=1).cpu().numpy()[:, :m]
+        pwald = jstats.pwald_from_beta_se(beta, se)
+        return [_result(pg, null, beta, se, pwald, ssq, lmm2,
+                        10.0 ** lgs if lmm2 else None, ml if lmm2 else None)]
+
+    return stream(pg, superblock, block, chunk)[0]
 
 
 # Per-trait scan state cache: rotated data + λ-grid shared pieces stay on
@@ -155,6 +284,12 @@ def fit_null(basis: SpectralBasis, y: np.ndarray, covariates=None,
     return fit_null_reml(rot)
 
 
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "SNP-sharded scans are not ported yet (ROADMAP queue 1, item 23)")
+
+
 def lmm_scan(
     pg: PackedGenotypes,
     basis: SpectralBasis,
@@ -173,69 +308,52 @@ def lmm_scan(
     if method not in ("grid", "brent"):
         raise ValueError(
             f"unknown lmm scan method {method!r} (expected 'grid' or 'brent')")
-    if method == "brent":
-        raise NotImplementedError(
-            "lmm_scan(method='brent') is not ported yet (ROADMAP queue 1, "
-            "item 12: method='brent')")
-    if lmm2:
-        raise NotImplementedError(
-            "lmm_scan(lmm2=True) is not ported yet (ROADMAP queue 1, "
-            "item 10: lmm2)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "SNP-sharded scans are not ported yet (ROADMAP queue 1, item 23)")
+    _no_mesh(mesh)
     dev = config.resolve_device(device)
-    rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", kernels.ROTATE_PRECS)
     if grid_points is None:
         grid_points = config.knob("JX_TPU_GRID_POINTS")
     y = np.asarray(y, np.float64).reshape(-1)
-    n = pg.n
-    rot, _, sh = _scan_state(basis, y, covariates, grid_points, dev)
+    state = _scan_state(basis, y, covariates, grid_points, dev)
     if null is None:
-        null = fit_null_reml(rot)
+        null = fit_null_reml(state[0])
+    if method == "brent":
+        return _brent_scan(pg, basis, state[0], null, block, lmm2, superblock, dev), null
+    return _grid_scan(pg, basis, [state], [null], block, lmm2, superblock, dev)[0], null
 
-    m = pg.m
-    block = min(block, m) if m else block
-    superblock = min(superblock, getattr(pg, "max_resident_snps", superblock))
-    if rot.p <= _LATTICE_MAX_P:
-        superblock = lattice_superblock(n, grid_points, block, superblock)
-    if m > superblock:
-        # streaming superblocks: host IO of chunk k+1 overlaps chunk k
-        from janusx_tpu_torch.utils.prefetch import prefetch_one_ahead
 
-        sb = max((superblock // block) * block, block)
-        spans = [(s0, min(s0 + sb, m)) for s0 in range(0, m, sb)]
-        parts = []
-        for sub in prefetch_one_ahead(
-                spans, lambda se: pg.take_snps(np.arange(se[0], se[1]))):
-            r, null = lmm_scan(sub, basis, y, covariates, block=block,
-                               null=null, grid_points=grid_points, device=dev)
-            parts.append(r)
-        return ScanResult.concat(parts), null
-    if not hasattr(pg, "packed"):  # lazy input small enough: materialize
-        pg = pg.take_snps(np.arange(m))
-    m_pad = -(-m // block) * block
-    nblk = m_pad // block
-    pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
-    mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
-    U32 = devcache.to_device(basis.U, f32, dev)
-    # K1's bf16 pieces of U, made once per basis and device
-    U_split = devcache.derived(basis.U, "u_split", dev, lambda: kernels.split_u(U32))
-    beta_d, se_d, pw_d = _lmm_scan_resident(pk, mn, U32, U_split, rot, sh, n,
-                                            rot_prec)
-    # one f32 stack to the host, as the reference ships it
-    out = torch.stack([beta_d.to(f32), se_d.to(f32), pw_d.to(f32)])
-    out = out.cpu().numpy().astype(np.float64)[:, :m]
-    beta, se, pwald = out[0], out[1], out[2]
-    # device f32 erfc is exact to ~1e-7 relative; lanes at/below the f32
-    # underflow floor get the exact host value
-    tiny = pwald <= _PWALD_F32_FLOOR
-    if tiny.any():
-        pwald = pwald.copy()
-        pwald[tiny] = jstats.pwald_from_beta_se(beta[tiny], se[tiny])
-    beta, se, pwald, _ = finalize_invalid(beta, se, pwald, np.ones(m))
-    res = ScanResult(
-        sites=pg.sites, af=pg.af, miss=pg.miss, beta=beta, se=se,
-        pwald=pwald, extras={"lambda_null": null.lbd},
-    )
-    return res, null
+def lmm_scan_multi(
+    pg: PackedGenotypes,
+    basis: SpectralBasis,
+    Y: np.ndarray,
+    covariates: np.ndarray | None = None,
+    block: int = config.DEFAULT_SNP_BLOCK,
+    lmm2: bool = False,
+    grid_points: int | None = None,
+    mesh=None,
+    superblock: int = _SUPERBLOCK,
+    _prepared=None,
+    device=None,
+) -> tuple[list[ScanResult], list[NullFit]]:
+    """Grid LMM scan of the columns of Y, traits sharing one sample mask,
+    basis and covariates: per resident superblock one K1 launch for all
+    traits and one trait-axis K2 launch. Each trait's result is the one
+    ``lmm_scan`` gives it. ``_prepared`` = ([(rot, grid_lg, sh)], [NullFit])
+    per trait, computed here when None."""
+    _no_mesh(mesh)
+    dev = config.resolve_device(device)
+    Y = np.asarray(Y, np.float64)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    if Y.shape[0] != pg.n:
+        raise ValueError(f"Y rows {Y.shape[0]} != samples {pg.n}")
+    if grid_points is None:
+        grid_points = config.knob("JX_TPU_GRID_POINTS")
+    # per-trait rotations/null fits are SNP-independent: computed once and
+    # carried through the superblocks
+    if _prepared is None:
+        states = [_scan_state(basis, Y[:, t].copy(), covariates, grid_points, dev)
+                  for t in range(Y.shape[1])]
+        nulls = [fit_null_reml(rot) for rot, _, _ in states]
+    else:
+        states, nulls = _prepared
+    return _grid_scan(pg, basis, states, nulls, block, lmm2, superblock, dev), nulls

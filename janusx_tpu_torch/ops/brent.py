@@ -25,14 +25,23 @@ def brent_minimize_batched(
     high: float,
     tol: float,
     max_iter: int,
-    batch_shape: tuple,
+    init_x: torch.Tensor | None = None,
+    batch_shape: tuple | None = None,
     device=None,
 ):
     """Minimize ``f`` elementwise over a batch of scalar lanes in [low, high],
-    in float64, every lane starting at the interval's midpoint.
+    in float64.
 
-    f maps a (B,) tensor of positions to a (B,) tensor of objective values
-    (each lane independent). Returns (x_best, f_best), both (B,)."""
+    Each lane starts at ``init_x`` (the scan warm-starts at λ_null); a
+    non-finite or out-of-range start, or no ``init_x`` (then
+    ``batch_shape`` and ``device`` give the batch), starts at the
+    interval's midpoint (janusx_tpu/ops/brent.py:67-73). f maps a (B,)
+    tensor of positions to a (B,) tensor of objective values (each lane
+    independent). Returns (x_best, f_best), both (B,)."""
+    if init_x is not None:
+        batch_shape, device = tuple(init_x.shape), init_x.device
+    elif batch_shape is None:
+        raise ValueError("need init_x or batch_shape")
     kw = dict(dtype=torch.float64, device=device)
     where = torch.where
     lo = torch.tensor(min(low, high), **kw)
@@ -40,7 +49,13 @@ def brent_minimize_batched(
     eps = torch.tensor(torch.finfo(torch.float64).eps, **kw)
     tol_ = torch.clamp(torch.tensor(abs(tol), **kw), min=1e-12)
 
-    x0 = torch.full(batch_shape, float(0.5 * (lo + hi)), **kw)
+    mid = torch.full(batch_shape, float(0.5 * (lo + hi)), **kw)
+    if init_x is None:
+        x0 = mid
+    else:
+        init_x = init_x.to(torch.float64)
+        x0 = where(torch.isfinite(init_x) & (init_x >= lo) & (init_x <= hi),
+                   init_x, mid)
     fx0 = f(x0)
     a = torch.full(batch_shape, float(lo), **kw)
     c = torch.full(batch_shape, float(hi), **kw)

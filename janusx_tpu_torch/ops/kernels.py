@@ -7,8 +7,9 @@ Two kernels carry the ``jx gwas -lmm`` scan (the JAX package's only two
 - K1 ``decode_rotate``: R = decode_centered(packed, mean) @ U on the
   tensor cores, in the reference's two precision modes (csrc/rotate.cu;
   replaces ``decode_rotate_planar``);
-- K2 ``grid_neg_reml_lattice``: the (SNP x lambda) profiled -REML lattice
-  (csrc/lattice.cu; replaces ``grid_neg_reml_lattice``).
+- K2 ``grid_neg_reml_lattice``: the (trait x SNP x lambda) profiled -REML
+  lattice (csrc/lattice.cu; replaces ``grid_neg_reml_lattice``, with the
+  trait axis the reference loops over in Python).
 
 Both are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
 ``build/janusx_tpu_torch/`` (keyed on a hash of the sources and flags) and
@@ -99,7 +100,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.jx_decode_rotate.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.jx_decode_rotate.restype = i
-    lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
+    lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
     lib.jx_grid_lattice.restype = i
     return lib
 
@@ -289,51 +290,68 @@ def neg_reml_closed_form(agg, agy, axg, Ar_inv, Ainv_axy, Axx, axy, ayy,
                                          device=neg.device), neg)
 
 
-def grid_neg_reml_lattice_plain(Gr, W, YX, SH, p: int, ridge: float,
-                                nf: float) -> torch.Tensor:
-    """Plain version of K2: the 2+p grams as f32 matmuls against Wᵀ, then
-    the closed form on the unpacked SH rows."""
-    n = Gr.shape[1]
-    Wt = W[:, :n].T
+def _lattice_one(Gr, Wt, y, X, SH, p: int, ridge: float, nf: float):
+    """One trait's lattice, the reference's per-trait kernel call: the 2+p
+    grams as f32 matmuls against Wᵀ, then the closed form on SH's rows."""
     agg = (Gr * Gr) @ Wt
-    agy = (Gr * YX[0, :n]) @ Wt
-    axg = torch.stack([(Gr * YX[1 + q, :n]) @ Wt for q in range(p)], dim=-1)
+    agy = (Gr * y) @ Wt
+    axg = torch.stack([(Gr * X[q]) @ Wt for q in range(p)], dim=-1)
     return neg_reml_closed_form(agg, agy, axg, *unpack_sh(SH, p), nf=nf,
                                 ridge=ridge)
+
+
+def grid_neg_reml_lattice_plain(Gr, W, YX, SH, p: int, ridge: float,
+                                nf: float) -> torch.Tensor:
+    """Plain version of K2: the reference's loop over traits
+    (janusx_tpu/models/lmm.py:578-591), one single-trait lattice each.
+    Shapes as grid_neg_reml_lattice's."""
+    n = Gr.shape[1]
+    Wt = W[:, :n].T
+    T = 1 if SH.dim() == 2 else SH.shape[0]
+    X = YX[T:, :n]
+    outs = [_lattice_one(Gr, Wt, YX[t, :n], X, SH.reshape(T, -1, SH.shape[-1])[t],
+                         p, ridge, nf) for t in range(T)]
+    return outs[0] if SH.dim() == 2 else torch.stack(outs)
 
 
 def grid_neg_reml_lattice(Gr: torch.Tensor, W: torch.Tensor,
                           YX: torch.Tensor, SH: torch.Tensor, p: int,
                           ridge: float, nf: float) -> torch.Tensor:
-    """(B, G) f32 -REML lattice (+inf on invalid cells) from rotated SNP
-    rows Gr (B, n), grid weights W (G, >=n), YX (1+p, >=n) = [yr, Xr
-    columns] and SH (2p²+2p+3, G); p in 1..4."""
+    """f32 -REML lattice (+inf on invalid cells) of T traits that share the
+    eigenbasis, the covariates and the λ grid, from rotated SNP rows Gr
+    (B, n), grid weights W (G, >=n), YX (T + p, >=n) = [T trait rows yr_t,
+    then the p Xr columns] and each trait's shared rows SH (T, 2p²+2p+3, G);
+    p in 1..4. Returns (T, B, G). A single trait may pass SH as
+    (2p²+2p+3, G) and YX as (1 + p, >=n), the reference's layout, and gets
+    (B, G)."""
     B, n = Gr.shape
     G = W.shape[0]
+    T = 1 if SH.dim() == 2 else SH.shape[0]
     if not 1 <= p <= 4:
         raise ValueError(f"grid_neg_reml_lattice supports p <= 4, got p={p}")
-    if (W.shape[1] < n or YX.shape[0] != 1 + p or YX.shape[1] < n
-            or SH.shape != (sh_rows(p), G)):
+    if (W.shape[1] < n or YX.shape[0] != T + p or YX.shape[1] < n
+            or SH.shape[-2:] != (sh_rows(p), G) or SH.dim() not in (2, 3) or T < 1):
         raise ValueError(
             f"grid_neg_reml_lattice: Gr {tuple(Gr.shape)}, W {tuple(W.shape)},"
             f" YX {tuple(YX.shape)}, SH {tuple(SH.shape)}, p={p}")
     if Gr.device.type == "cpu":
         return grid_neg_reml_lattice_plain(Gr, W, YX, SH, p, ridge, nf)
     dev = Gr.device
-    for t, name in ((Gr, "Gr"), (W, "W"), (YX, "YX"), (SH, "SH")):
+    for t, name in ((Gr, "Gr"), (W, "W"), (YX, "YX")):
         _check(t, name, torch.float32, 2, dev)
+    _check(SH, "SH", torch.float32, SH.dim(), dev)
     if not SH.is_contiguous():
         raise ValueError("SH must be contiguous")
-    out = torch.empty((B, G), dtype=torch.float32, device=dev)
+    out = torch.empty((T, B, G), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().jx_grid_lattice(
             Gr.data_ptr(), W.data_ptr(), YX.data_ptr(), SH.data_ptr(),
-            out.data_ptr(), B, G, n, p, Gr.stride(0), W.stride(0),
+            out.data_ptr(), T, B, G, n, p, Gr.stride(0), W.stride(0),
             YX.stride(0), float(ridge), float(nf - (p + 1)),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "grid_neg_reml_lattice")
     grid_neg_reml_lattice.launches += 1
-    return out
+    return out[0] if SH.dim() == 2 else out
 
 
 grid_neg_reml_lattice.launches = 0

@@ -85,25 +85,29 @@ def test_decode_rotate_highest_is_f32_accurate(dev, align16):
     torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-4)
 
 
-def _lattice_args(rng, Gr, G, p, dev):
+def _lattice_args(rng, Gr, G, p, dev, T=None):
     """K2 operands for rotated rows Gr (B, n): grid weights of random
     eigenvalues, a design of an intercept + p - 1 covariates, and SH built
-    from them as the scan builds it."""
+    from them as the scan builds it. With ``T`` traits share the weights
+    and the design: YX is (T + p, n) and SH (T, R, G)."""
     n = Gr.shape[1]
     s = rng.uniform(0.01, 5.0, n)
     lam = 10.0 ** np.linspace(-5, 5, G)
     w = 1.0 / (s[None, :] + lam[:, None])
     X = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))], axis=1)
-    y = rng.normal(size=n)
-    YX = torch.as_tensor(np.ascontiguousarray(np.concatenate([y[None], X.T])),
+    ys = rng.normal(size=(1 if T is None else T, n))
+    YX = torch.as_tensor(np.ascontiguousarray(np.concatenate([ys, X.T])),
                          dtype=torch.float32, device=dev)
     Axx = np.einsum("gk,ka,kb->gab", w, X, X)
-    axy = np.einsum("gk,ka,k->ga", w, X, y)
     Ar_inv = np.linalg.inv(Axx + config.GRAM_RIDGE * np.eye(p))
-    SH = kernels.pack_sh(*(torch.as_tensor(a, device=dev) for a in (
-        Ar_inv, np.einsum("gab,gb->ga", Ar_inv, axy), Axx, axy, w @ (y * y),
-        np.linalg.slogdet(Axx + config.GRAM_RIDGE * np.eye(p))[1],
-        np.log(s[None, :] + lam[:, None]).sum(1))))
+    SHs = []
+    for y in ys:
+        axy = np.einsum("gk,ka,k->ga", w, X, y)
+        SHs.append(kernels.pack_sh(*(torch.as_tensor(a, device=dev) for a in (
+            Ar_inv, np.einsum("gab,gb->ga", Ar_inv, axy), Axx, axy, w @ (y * y),
+            np.linalg.slogdet(Axx + config.GRAM_RIDGE * np.eye(p))[1],
+            np.log(s[None, :] + lam[:, None]).sum(1)))))
+    SH = SHs[0] if T is None else torch.stack(SHs).contiguous()
     W = torch.as_tensor(w, dtype=torch.float32, device=dev)
     return (Gr, W, YX, SH, p, config.GRAM_RIDGE, float(n))
 
@@ -124,6 +128,71 @@ def test_grid_lattice_kernel_matches_plain(dev, p, B, G, n):
     rng = np.random.default_rng(p * 1000 + n)
     Gr = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32, device=dev)
     _check_lattice(_lattice_args(rng, Gr, G, p, dev))
+
+
+@pytest.mark.parametrize("T", [1, 3, 4, 6])
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("B,G,n", [(2048, 256, 1410), (37, 70, 45)])
+def test_grid_lattice_trait_axis_matches_plain(dev, p, T, B, G, n):
+    """The trait axis (T traits in one launch; 6 spans two trait chunks)
+    against the plain version, the reference's loop over traits."""
+    rng = np.random.default_rng(p * 1000 + n + 17 * T)
+    Gr = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32, device=dev)
+    args = _lattice_args(rng, Gr, G, p, dev, T=T)
+    before = kernels.grid_neg_reml_lattice.launches
+    _check_lattice(args)
+    assert kernels.grid_neg_reml_lattice.launches == before + 1
+    assert kernels.grid_neg_reml_lattice(*args).shape == (T, B, G)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_grid_lattice_traits_equal_single_trait_launches(dev, p):
+    """Each trait of a T = 3 launch equals the single-trait launch on that
+    trait's rows bit for bit (the same FMAs in the same order), and a
+    (1, R, G) SH gives the (R, G) call's lattice."""
+    rng = np.random.default_rng(90 + p)
+    B, G, n = 300, 130, 333
+    Gr = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32, device=dev)
+    Gr_, W, YX, SH, p_, ridge, nf = _lattice_args(rng, Gr, G, p, dev, T=3)
+    out = kernels.grid_neg_reml_lattice(Gr_, W, YX, SH, p_, ridge, nf)
+    for t in range(3):
+        YX1 = torch.cat([YX[t:t + 1], YX[3:]]).contiguous()
+        one = kernels.grid_neg_reml_lattice(Gr, W, YX1, SH[t], p, ridge, nf)
+        assert torch.equal(out[t], one)
+        stacked = kernels.grid_neg_reml_lattice(Gr, W, YX1, SH[t:t + 1], p, ridge, nf)
+        assert stacked.shape == (1, B, G) and torch.equal(stacked[0], one)
+
+
+def test_lmm_scan_multi_on_card_matches_single_trait_scans(dev):
+    """lmm_scan_multi on the card (one K1 and one K2 launch for all three
+    traits) against three lmm_scan calls: Δ(-log10 p) <= 5e-3
+    (tests/test_scans.py:229)."""
+    from janusx_tpu_torch.core.spectral import eigh_grm
+    from janusx_tpu_torch.io.gdata import GenotypeData, SiteInfo
+    from janusx_tpu_torch.io.packed import QcParams, pack_genotypes
+    from janusx_tpu_torch.models import lmm
+
+    rng = np.random.default_rng(5)
+    m, n, T = 3000, 300, 3
+    g = rng.binomial(2, rng.uniform(0.05, 0.5, m)[:, None], size=(m, n)).astype(np.int8)
+    site = dict(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
+                snp=np.array([f"rs{i}" for i in range(m)], object),
+                allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+    pg = pack_genotypes(GenotypeData(g, SiteInfo(**site), np.array(
+        [f"i{j}" for j in range(n)], object)), QcParams())
+    gc = pg.centered()
+    basis = eigh_grm(gc.T @ gc / pg.m, diag_ridge=1e-6)
+    Y = 1.0 + gc.T @ rng.normal(0, 0.03, (pg.m, T)) + rng.normal(size=(n, T))
+    cov = rng.normal(size=(n, 2))
+    kernels.reset_launches()
+    res, nulls = lmm.lmm_scan_multi(pg, basis, Y, cov, block=512, device=dev)
+    assert kernels.decode_rotate.launches == 1
+    assert kernels.grid_neg_reml_lattice.launches == 1
+    for t in range(T):
+        one, null = lmm.lmm_scan(pg, basis, Y[:, t], cov, block=512, device=dev)
+        assert null.lbd == nulls[t].lbd
+        dl = np.abs(np.log10(res[t].pwald) - np.log10(one.pwald))
+        assert np.nanmax(dl) <= 5e-3
 
 
 @pytest.mark.parametrize("prec", ["highest", "high"])

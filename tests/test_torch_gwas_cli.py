@@ -93,18 +93,36 @@ def test_gwas_lmm_cli_matches_reference(tmp_path):
 
 
 def test_gwas_switch_to_lm_is_not_ported(tmp_path):
-    """Without -force-model a trait with no polygenic signal would switch
-    to LM (null LRT p >= 0.05); the port raises instead of falling back."""
+    """Without -force-model a trait with no polygenic signal switches to LM
+    (null LRT p >= 0.05), in the port as in the reference: the same LM
+    statistics under the requested model's tag."""
+    from janusx_tpu.cli.main import main as j_main
     from janusx_tpu_torch.cli.main import main as t_main
 
-    prefix, pheno = _write_panel(tmp_path, n=120, m=300, polygenic=False)
-    with pytest.raises(NotImplementedError, match="force-model"):
-        t_main(_gwas_args(prefix, pheno, tmp_path / "out"))
+    (tmp_path / "ref").mkdir()
+    prefix, pheno = _write_panel(tmp_path / "ref", n=120, m=300, polygenic=False)
+    shutil.copytree(tmp_path / "ref", tmp_path / "port")
+    assert j_main(_gwas_args(prefix, pheno, tmp_path / "out_ref")) == 0
+    tprefix = str(tmp_path / "port" / "panel")
+    assert t_main(_gwas_args(tprefix, tprefix + ".pheno", tmp_path / "out_port")) == 0
+    h_ref, rows_ref, lam_ref = _read(tmp_path / "out_ref")
+    h_port, rows_port, lam_port = _read(tmp_path / "out_port")
+    assert lam_port is None and lam_ref is None
+    with open(tmp_path / "out_port" / "jx.gwas.summary.json") as fh:
+        run = json.load(fh)["runs"][0]
+    assert (run["model"], run["requested"]) == ("lm", "lmm")
+    assert h_port == h_ref
+    assert [r[:7] for r in rows_port] == [r[:7] for r in rows_ref]
+    p_ref = np.array([float(r[10]) for r in rows_ref])
+    p_port = np.array([float(r[10]) for r in rows_port])
+    np.testing.assert_allclose(p_port, p_ref, rtol=1e-4)  # the TSV's 5 digits
 
 
-@pytest.mark.parametrize("flag", [["-lm"], ["-lmm2"], ["-trait-level"]])
+@pytest.mark.parametrize("flag", [["-splmm"], ["-splmm-exact"], ["-lowrank"],
+                                  ["-algwas"], ["-spk", "grm.jxgrm"]])
 def test_gwas_unported_flags_raise(tmp_path, flag):
+    """The routes left unported raise, naming their ROADMAP item."""
     from janusx_tpu_torch.cli.main import main as t_main
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP queue 1, item"):
         t_main(_gwas_args("x", "x.pheno", tmp_path / "out", *flag))

@@ -1,7 +1,9 @@
 """Guards on the port's boundary.
 
 - The port never imports JAX: a fresh interpreter runs the whole CPU
-  slice (write a toy PLINK panel, ``jx gwas -lmm`` through the port's CLI)
+  slice (write a toy PLINK panel, then ``jx gwas`` through the port's CLI
+  with every ported model, ``-trait-level`` over three traits of which
+  one switches to LM, ``-bimrange``, ``-global``, ``-scan-method brent``)
   and must end with no ``jax`` module loaded.
 - The host modules the port carries as copies (janusx_tpu/__init__.py
   imports jax, so they cannot be shared by import) stay identical to their
@@ -27,7 +29,7 @@ COPIES = (
     + [f"io/{m}.py" for m in ("gdata", "bitcodec", "packed", "plink", "pheno", "vcf",
                               "hapmap", "txt", "gfreader", "windowed", "native")]
     + [f"utils/{m}.py" for m in ("nativelib", "tsv", "prefetch", "progress", "cache")]
-    + ["models/scan_common.py", "cli/common.py"]
+    + ["models/scan_common.py", "models/farmcpu.py", "cli/common.py", "utils/history.py"]
 )
 
 _IMPORT = re.compile(r"^\s*(from|import)\s+janusx_tpu\b")
@@ -75,18 +77,31 @@ sites = SiteInfo(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
 d = sys.argv[1]
 write_plink(d + "/toy", bitcodec.pack_codes(g.astype(np.uint8)), n, sites,
             np.array([f"s{j}" for j in range(n)], object))
-y = (g - g.mean(1, keepdims=True)).T @ rng.normal(0, 0.1, m) + rng.normal(size=n)
+x = (g - g.mean(1, keepdims=True)).T
+Y = np.stack([x @ rng.normal(0, 0.15, m) + rng.normal(size=n),
+              x @ rng.normal(0, 0.15, m) + rng.normal(size=n),
+              rng.normal(size=n)], axis=1)  # the third has no polygenic signal
 with open(d + "/toy.pheno", "w") as fh:
-    fh.write("ID\ttest0\n" + "".join(f"s{j}\t{v}\n" for j, v in enumerate(y)))
-assert main(["gwas", "-bfile", d + "/toy", "-p", d + "/toy.pheno", "-lmm",
-             "-force-model", "-n", "0", "-o", d + "/out"]) == 0
-assert os.path.exists(d + "/out/jx.test0.LMM.assoc.tsv")
+    fh.write("ID\ttest0\ttest1\tnull\n")
+    fh.writelines(f"s{j}\t" + "\t".join(map(str, r)) + "\n" for j, r in enumerate(Y))
+with open(d + "/toy.cov", "w") as fh:
+    fh.write("ID\tc0\n" + "".join(f"s{j}\t{v}\n" for j, v in enumerate(rng.normal(size=n))))
+base = ["gwas", "-bfile", d + "/toy", "-p", d + "/toy.pheno"]
+assert main(base + ["-lm", "-lmm", "-lmm2", "-fvlmm", "-trait-level", "-bimrange",
+                    "1:0.0001-0.0003", "-o", d + "/out"]) == 0
+for f in ("test0.LMM", "test1.LMM2", "null.LMM", "null.FvLMM", "traitlevel"):
+    assert os.path.exists(f"{d}/out/jx.{f}.assoc.tsv"), f
+assert main(base + ["-lm2", "-fvlmm2", "-farmcpu", "-c", d + "/toy.cov", "-n", "0",
+                    "-o", d + "/out2"]) == 0
+assert main(base + ["-lmm", "-scan-method", "brent", "-frgwas", "-global",
+                    "-o", d + "/out3"]) == 0
 print("JAX_LOADED", "jax" in sys.modules)
 """
 
 
 def test_port_runs_without_jax(tmp_path):
-    env = dict(os.environ, JX_TPU_PLATFORM="cpu", PYTHONPATH=str(ROOT))
+    env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
+               PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _SLICE, str(tmp_path)], env=env,
                           cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

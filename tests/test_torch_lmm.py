@@ -85,9 +85,10 @@ def test_lmm_scan_streaming_matches_reference(panel):
 
 
 def test_lmm_scan_unported_routes_raise(panel):
+    """Only the SNP-sharded scan is left unported (brent and lmm2 are held
+    to the reference in tests/test_torch_lmm_family.py)."""
     pj, pt, basis, y, _ = panel
     tb = interop.basis_from_numpy(basis)
-    for kw, item in ((dict(method="brent"), "item 12"), (dict(lmm2=True), "item 10"),
-                     (dict(mesh=object()), "item 23")):
-        with pytest.raises(NotImplementedError, match=item):
-            tlmm.lmm_scan(pt, tb, y, device="cpu", **kw)
+    for scan in (tlmm.lmm_scan, tlmm.lmm_scan_multi):
+        with pytest.raises(NotImplementedError, match="item 23"):
+            scan(pt, tb, y, mesh=object(), device="cpu")

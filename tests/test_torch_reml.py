@@ -176,3 +176,61 @@ def test_pwald_device_matches():
     tail = (ref < 1e-8) & (ref > 1e-30)
     assert tail.sum() > 20
     np.testing.assert_allclose(port[tail], ref[tail], rtol=5e-6)
+
+
+def test_brent_init_x_matches_reference():
+    """Warm starts (the scan starts every lane at λ_null): each lane's
+    optimum and value are the reference's; a non-finite or out-of-range
+    start runs from the midpoint, as in the reference
+    (janusx_tpu/ops/brent.py:67-73)."""
+    from janusx_tpu.ops.brent import brent_minimize_batched as j_brent
+    from janusx_tpu_torch.ops.brent import brent_minimize_batched as t_brent
+
+    c = np.array([-4.0, -1.3, 0.2, 2.9, 4.6, 1.0])
+    w = np.array([1.0, 0.3, 5.0, 0.05, 1.0, 2.0])
+    init = np.array([-3.5, 0.0, np.nan, 7.0, 4.5, -9.0])
+
+    def f_j(x):
+        return w * (x - c) ** 2 + 0.2 * jnp.sin(3.0 * x)
+
+    def f_t(x):
+        return torch.from_numpy(w) * (x - torch.from_numpy(c)) ** 2 + 0.2 * torch.sin(3.0 * x)
+
+    xj, fj = j_brent(f_j, -5.0, 5.0, 1e-2, 50, init_x=jnp.asarray(init))
+    xt, ft = t_brent(f_t, -5.0, 5.0, 1e-2, 50, init_x=torch.from_numpy(init))
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-12, atol=1e-12)
+    # the invalid starts (nan, 7.0, -9.0) equal a run from the midpoint
+    xm, _ = t_brent(f_t, -5.0, 5.0, 1e-2, 50, init_x=torch.zeros(6, dtype=torch.float64))
+    np.testing.assert_array_equal(xt.numpy()[[2, 3, 5]], xm.numpy()[[2, 3, 5]])
+    with pytest.raises(ValueError, match="init_x or batch_shape"):
+        t_brent(f_t, -5.0, 5.0, 1e-2, 50)
+
+
+def test_snp_objective_pieces_match(problem):
+    """The brent route's per-SNP f64 objective (janusx_tpu/core/reml.py:
+    106-216) on the same rotated rows at per-lane λ: -REML, ML and beta/se
+    rtol 1e-9 (f64 matmuls in another summation order), the same invalid
+    lanes; and lmm_grid_scan's λ* within the lattice bound."""
+    rot_j, rot_t, Gr32 = problem
+    Gr = Gr32.astype(np.float64)
+    Gr[5] = 0.0  # a monomorphic lane: only the ridge keeps the design regular
+    lg = np.random.default_rng(2).uniform(-3, 3, Gr.shape[0])
+    Gj, Gt, lj, lt = jnp.asarray(Gr), torch.from_numpy(Gr), jnp.asarray(lg), torch.from_numpy(lg)
+    for fj, ft in ((jreml.neg_reml_snp_batch, treml.neg_reml_snp_batch),
+                   (jreml.ml_snp_batch, treml.ml_snp_batch)):
+        np.testing.assert_allclose(ft(lt, rot_t, Gt).numpy(), np.asarray(fj(lj, rot_j, Gj)),
+                                   rtol=1e-9)
+    bj, sj = (np.asarray(a) for a in jreml.beta_se_snp_batch(lj, rot_j, Gj))
+    bt, st = (a.numpy() for a in treml.beta_se_snp_batch(lt, rot_t, Gt))
+    np.testing.assert_array_equal(np.isnan(bt), np.isnan(bj))
+    assert bt[5] == bj[5] == 0.0
+    ok = ~np.isnan(bj)
+    np.testing.assert_allclose(bt[ok], bj[ok], rtol=1e-9, atol=1e-12 * np.abs(bj[ok]).max())
+    np.testing.assert_allclose(st[ok], sj[ok], rtol=1e-9)
+    G = 256
+    grid_j = jnp.asarray(np.linspace(-5, 5, G), jnp.float64)
+    lg_j = np.asarray(jreml.lmm_grid_scan(rot_j, jnp.asarray(Gr32), grid_j))
+    lg_t = treml.lmm_grid_scan(rot_t, torch.from_numpy(Gr32), treml.make_grid(G, "cpu")).numpy()
+    np.testing.assert_allclose(lg_t, lg_j, atol=2.02 * 10.0 / (G - 1))
+    assert np.mean(np.abs(lg_t - lg_j) < 1e-6) > 0.5
