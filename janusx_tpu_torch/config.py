@@ -9,7 +9,18 @@ Precision policy (the reference's, kept so the parity tests compare like
 with like): genotype decode, the rotation kernel, the lambda lattice and
 the final per-SNP grams are float32; rotated data, grid-shared pieces, the
 null REML fit and the final Schur epilogue are float64. Every tensor the
-port creates names its dtype.
+port creates names its dtype. Both kernels run on the tensor cores and
+keep float32 accuracy by default from exact bf16 pieces
+(``JX_TPU_ROTATE_PREC=highest``, ``JX_TPU_GRID_MXU_PREC=highest``); each
+also has the reference's reduced mode.
+
+One default deviates from the reference: ``JX_TPU_GRID_MXU_PREC`` is
+``default`` (one bf16 pass) in janusx_tpu/config.py and ``highest`` here.
+The lattice only ranks λ cells (beta and se are evaluated afresh at λ* in
+f32 grams and an f64 epilogue), so the one-pass mode is the reference's
+choice on the TPU; the port keeps f32 grams by default because every parity
+bound and smoke check of the port was set on the f32 lattice, and one pass
+saves at most a few milliseconds per superblock on an H100.
 
 Device selection: ``JX_TPU_PLATFORM=cpu`` pins the CPU (the tests and the
 plain-PyTorch path); anything else, or unset, means ``cuda``, and asking
@@ -64,6 +75,7 @@ KNOBS: dict = {
     "JX_TPU_LAMBDA_HIGH": (float, 5.0, "log10 lambda search upper bound"),
     "JX_TPU_EIGH_BACKEND": (str, "host", "GRM eigendecomposition backend: host (LAPACK) | device (torch.linalg.eigh)"),
     "JX_TPU_GRM_FLUSH": (int, 16, "SNP blocks accumulated in f32 before each f64 flush in the GRM build"),
+    "JX_TPU_GRID_MXU_PREC": (str, "highest", "lambda-lattice gram precision: highest (f32-accurate: exact bf16 pieces on the tensor cores, 6 passes) | default (the reference's default: products and weights rounded to bf16, 1 pass; selection-grade)"),
     "JX_TPU_ROTATE_PREC": (str, "highest", "decode+rotate precision: highest (f32-accurate: exact bf16 pieces on the tensor cores, 6 passes) | high (the reference's bf16x3, 3 passes; up to ~3e-5 matrix-relative from highest on an eigenbasis)"),
     "JX_TPU_LOWMEM": (bool, False, "force the disk-backed windowed genotype path regardless of size"),
     "JX_TPU_LOWMEM_BYTES": (int, None, "packed-size threshold (bytes) above which inputs stream from disk"),

@@ -96,9 +96,11 @@ def lattice_superblock(n: int, grid_points: int, block: int,
 
 
 def _grid_resident(pk, mn, U32, U_split, rots, shs, n: int, with_ml: bool,
-                   rot_prec: str):
-    """Grid scan of T traits on pre-blocked (nblk, B, nb) packed rows.
-    Returns (beta, se, pwald, log10 λ*, ml), each (T, nblk*B) f64."""
+                   rot_prec: str, lattice, grid_prec: str):
+    """Grid scan of T traits on pre-blocked (nblk, B, nb) packed rows;
+    ``lattice`` = (W, YX, SH, W_split), K2's operands made once per scan
+    (None for p > 4). Returns (beta, se, pwald, log10 λ*, ml), each (T, nblk*B)
+    f64."""
     T, p = len(rots), rots[0].p
     nblk, B = mn.shape
     M = nblk * B
@@ -106,11 +108,12 @@ def _grid_resident(pk, mn, U32, U_split, rots, shs, n: int, with_ml: bool,
         # one launch of each kernel over the whole resident chunk and every
         # trait: a single 2048-row block leaves a quarter of the card idle
         # (csrc/rotate.cu)
-        W, YX, SH = _lattice_operands_multi(shs, rots)
+        W, YX, SH, W_split = lattice
         Gr = kernels.decode_rotate(pk.reshape(M, -1), mn.reshape(-1), U32,
-                                   prec=rot_prec, U_split=U_split)
+                                   prec=rot_prec, U_split=U_split, row_align=4)
         neg = kernels.grid_neg_reml_lattice(Gr, W, YX, SH, p=p,
-                                            ridge=config.GRAM_RIDGE, nf=float(n))
+                                            ridge=config.GRAM_RIDGE, nf=float(n),
+                                            prec=grid_prec, W_split=W_split)
         lgs = argmin_parabolic(neg.reshape(T * M, -1), shs[0].grid_lg).reshape(T, M)
         del neg
     else:
@@ -170,16 +173,25 @@ def _grid_scan(pg, basis: SpectralBasis, states, nulls, block: int, lmm2: bool,
     """Grid scan of the traits in ``states`` [(rot, grid_lg, sh)], one
     ScanResult each; superblocks are capped so the T lattices fit."""
     rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", kernels.ROTATE_PRECS)
+    # the lattice's gram precision, read by both the single-trait and the
+    # trait-level scan as the reference reads it (lmm.py:387, 725)
+    grid_prec = config.choice_knob("JX_TPU_GRID_MXU_PREC", kernels.GRID_PRECS)
     rots = [s[0] for s in states]
     shs = [s[2] for s in states]
     T, n = len(states), pg.n
     block = min(block, pg.m) if pg.m else block
+    lattice = None
+    if rots[0].p <= _LATTICE_MAX_P:
+        # K2's operands, the same for every superblock: W's bf16 pieces
+        # (the card's B operand) are split once per scan
+        W, YX, SH = _lattice_operands_multi(shs, rots)
+        lattice = (W, YX, SH, kernels.split_w(W))
 
     def chunk(pg):
         m = pg.m
         pk, mn, U32, U_split = _upload(pg, basis, block, dev)
         beta, se, pw, lgs, ml = _grid_resident(pk, mn, U32, U_split, rots, shs,
-                                               n, lmm2, rot_prec)
+                                               n, lmm2, rot_prec, lattice, grid_prec)
         # one f32 stack to the host, as the reference ships it; λ* and ml
         # only on the lmm2 route (lmm.py:474-479)
         out = torch.stack([beta.to(f32), se.to(f32), pw.to(f32)])

@@ -8,8 +8,9 @@ Two kernels carry the ``jx gwas -lmm`` scan (the JAX package's only two
   tensor cores, in the reference's two precision modes (csrc/rotate.cu;
   replaces ``decode_rotate_planar``);
 - K2 ``grid_neg_reml_lattice``: the (trait x SNP x lambda) profiled -REML
-  lattice (csrc/lattice.cu; replaces ``grid_neg_reml_lattice``, with the
-  trait axis the reference loops over in Python).
+  lattice on the tensor cores, in the reference's two precision modes
+  (csrc/lattice.cu; replaces ``grid_neg_reml_lattice``, with the trait axis
+  the reference loops over in Python).
 
 Both are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
 ``build/janusx_tpu_torch/`` (keyed on a hash of the sources and flags) and
@@ -100,7 +101,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.jx_decode_rotate.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.jx_decode_rotate.restype = i
-    lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
+    lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.jx_grid_lattice.restype = i
     return lib
 
@@ -191,13 +192,16 @@ def _rows16(packed: torch.Tensor) -> torch.Tensor:
 
 def decode_rotate(packed: torch.Tensor, mean: torch.Tensor, U: torch.Tensor,
                   prec: str = "highest",
-                  U_split: torch.Tensor | None = None) -> torch.Tensor:
+                  U_split: torch.Tensor | None = None,
+                  row_align: int = 1) -> torch.Tensor:
     """R (M, N) f32 = decode_centered(packed (M, nb) u8, mean (M,) f32)
     @ U (K, N) f32 with K <= 4 nb: samples k >= K are ignored and U is in
     natural sample order (no plane-major permutation). ``prec`` is
     "highest" (f32-accurate) or "high" (the reference's bf16x3). On the
     card the kernel reads ``U_split = split_u(U)``; pass it to make the
-    split once per basis instead of once per call."""
+    split once per basis instead of once per call. ``row_align`` = 4 makes
+    the card's R a view of rows padded to 16 bytes, which K2 reads with
+    16-byte loads."""
     if prec not in ROTATE_PRECS:
         raise ValueError(f"decode_rotate prec={prec!r}: expected one of {ROTATE_PRECS}")
     M, nb = packed.shape
@@ -221,7 +225,8 @@ def decode_rotate(packed: torch.Tensor, mean: torch.Tensor, U: torch.Tensor,
         raise ValueError(f"decode_rotate: U_split {tuple(U_split.shape)} is not "
                          f"split_u of a ({K}, {N}) U")
     packed = _rows16(packed)
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, -(-N // row_align) * row_align), dtype=torch.float32,
+                      device=dev)[:, :N]
     with torch.cuda.device(dev):
         err = _lib().jx_decode_rotate(
             packed.data_ptr(), mean.data_ptr(), U_split.data_ptr(),
@@ -290,40 +295,96 @@ def neg_reml_closed_form(agg, agy, axg, Ar_inv, Ainv_axy, Axx, axy, ayy,
                                          device=neg.device), neg)
 
 
-def _lattice_one(Gr, Wt, y, X, SH, p: int, ridge: float, nf: float):
+GRID_PRECS = ("highest", "default")
+# W-split tile multiples: csrc/lattice.cu's BN (λ points per block) and BK
+# (samples per stage)
+_LAT_BN = 32
+_LAT_BK = 64
+# the sample order of split_w inside each 16-sample step: wgmma's A fragment
+# gives thread t the columns 2t, 2t+1, 2t+8, 2t+9, which the kernel fills
+# with the samples 4t..4t+3 (one 16-byte load), so column c of W's pieces
+# holds sample _LAT_KPERM[c]
+_LAT_KPERM = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+
+
+def split_w(W: torch.Tensor) -> torch.Tensor:
+    """K2's B operand, made once per scan: the grid weights W (G, n) f32 ->
+    (3, Gpad, Kpad) bf16, the three ``split_bf16`` pieces (their sum is W
+    exactly; the first is W rounded to bf16, all the "default" mode reads),
+    G and n zero-padded to multiples of the kernel's tiles (32 and 64), each
+    16-sample step in the order ``_LAT_KPERM``."""
+    G, n = W.shape
+    gpad = max(-(-G // _LAT_BN), 1) * _LAT_BN
+    kpad = max(-(-n // _LAT_BK), 1) * _LAT_BK
+    Wp = torch.zeros((gpad, kpad), dtype=torch.float32, device=W.device)
+    Wp[:G, :n] = W
+    Wp = Wp.view(gpad, kpad // 16, 16)[:, :, list(_LAT_KPERM)].reshape(gpad, kpad)
+    return torch.stack([p.to(torch.bfloat16) for p in split_bf16(Wp, 3)]).contiguous()
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _lattice_one(Gr, Wt, y, X, SH, p: int, ridge: float, nf: float, rnd):
     """One trait's lattice, the reference's per-trait kernel call: the 2+p
-    grams as f32 matmuls against Wᵀ, then the closed form on SH's rows."""
-    agg = (Gr * Gr) @ Wt
-    agy = (Gr * y) @ Wt
-    axg = torch.stack([(Gr * X[q]) @ Wt for q in range(p)], dim=-1)
+    grams as f32 matmuls of ``rnd``(products) against Wᵀ, then the closed
+    form on SH's rows."""
+    agg = rnd(Gr * Gr) @ Wt
+    agy = rnd(Gr * y) @ Wt
+    axg = torch.stack([rnd(Gr * X[q]) @ Wt for q in range(p)], dim=-1)
     return neg_reml_closed_form(agg, agy, axg, *unpack_sh(SH, p), nf=nf,
                                 ridge=ridge)
 
 
 def grid_neg_reml_lattice_plain(Gr, W, YX, SH, p: int, ridge: float,
-                                nf: float) -> torch.Tensor:
+                                nf: float, prec: str = "highest") -> torch.Tensor:
     """Plain version of K2: the reference's loop over traits
     (janusx_tpu/models/lmm.py:578-591), one single-trait lattice each.
+    "highest" forms the grams as f32 matmuls; "default" first rounds the
+    products Gr*Gr, Gr*y_t, Gr*X_q and W to bf16, as the TPU's one-pass
+    Precision.DEFAULT does (every product of two bf16 values is exact in
+    f32, so both compute the kernel's function up to summation order).
     Shapes as grid_neg_reml_lattice's."""
+    rnd = _bf16_round if prec == "default" else (lambda x: x)
     n = Gr.shape[1]
-    Wt = W[:, :n].T
+    Wt = rnd(W[:, :n]).T
     T = 1 if SH.dim() == 2 else SH.shape[0]
     X = YX[T:, :n]
     outs = [_lattice_one(Gr, Wt, YX[t, :n], X, SH.reshape(T, -1, SH.shape[-1])[t],
-                         p, ridge, nf) for t in range(T)]
+                         p, ridge, nf, rnd) for t in range(T)]
     return outs[0] if SH.dim() == 2 else torch.stack(outs)
+
+
+def _lattice_yx(YX: torch.Tensor, T: int, p: int, n: int, kpad: int) -> torch.Tensor:
+    """K2's YX operand: (tpad + p, kpad) f32, zero past n, the T trait rows
+    padded with zero rows to whole chunks of min(T, 4) traits, then the p
+    covariate rows."""
+    tt = min(T, 4)
+    tpad = -(-T // tt) * tt
+    out = torch.zeros((tpad + p, kpad), dtype=torch.float32, device=YX.device)
+    out[:T, :n] = YX[:T, :n]
+    out[tpad:, :n] = YX[T:, :n]
+    return out
 
 
 def grid_neg_reml_lattice(Gr: torch.Tensor, W: torch.Tensor,
                           YX: torch.Tensor, SH: torch.Tensor, p: int,
-                          ridge: float, nf: float) -> torch.Tensor:
+                          ridge: float, nf: float, prec: str = "highest",
+                          W_split: torch.Tensor | None = None) -> torch.Tensor:
     """f32 -REML lattice (+inf on invalid cells) of T traits that share the
     eigenbasis, the covariates and the λ grid, from rotated SNP rows Gr
     (B, n), grid weights W (G, >=n), YX (T + p, >=n) = [T trait rows yr_t,
     then the p Xr columns] and each trait's shared rows SH (T, 2p²+2p+3, G);
     p in 1..4. Returns (T, B, G). A single trait may pass SH as
     (2p²+2p+3, G) and YX as (1 + p, >=n), the reference's layout, and gets
-    (B, G)."""
+    (B, G). ``prec`` is "highest" (f32-accurate grams) or "default" (the
+    reference's one-pass bf16 grams). On the card the kernel reads
+    ``W_split = split_w(W[:, :n])``; pass it to make the split once per
+    scan instead of once per call."""
+    if prec not in GRID_PRECS:
+        raise ValueError(f"grid_neg_reml_lattice prec={prec!r}: expected one of "
+                         f"{GRID_PRECS}")
     B, n = Gr.shape
     G = W.shape[0]
     T = 1 if SH.dim() == 2 else SH.shape[0]
@@ -335,19 +396,28 @@ def grid_neg_reml_lattice(Gr: torch.Tensor, W: torch.Tensor,
             f"grid_neg_reml_lattice: Gr {tuple(Gr.shape)}, W {tuple(W.shape)},"
             f" YX {tuple(YX.shape)}, SH {tuple(SH.shape)}, p={p}")
     if Gr.device.type == "cpu":
-        return grid_neg_reml_lattice_plain(Gr, W, YX, SH, p, ridge, nf)
+        return grid_neg_reml_lattice_plain(Gr, W, YX, SH, p, ridge, nf, prec)
     dev = Gr.device
     for t, name in ((Gr, "Gr"), (W, "W"), (YX, "YX")):
         _check(t, name, torch.float32, 2, dev)
     _check(SH, "SH", torch.float32, SH.dim(), dev)
     if not SH.is_contiguous():
         raise ValueError("SH must be contiguous")
+    if W_split is None:
+        W_split = split_w(W[:, :n])
+    _check(W_split, "W_split", torch.bfloat16, 3, dev)
+    _, gpad, kpad = W_split.shape
+    if (W_split.shape[0] != 3 or gpad != -(-G // _LAT_BN) * _LAT_BN or kpad < n
+            or kpad % _LAT_BK or not W_split.is_contiguous()):
+        raise ValueError(f"grid_neg_reml_lattice: W_split {tuple(W_split.shape)} "
+                         f"is not split_w of a ({G}, {n}) W")
+    YXp = _lattice_yx(YX, T, p, n, kpad)
     out = torch.empty((T, B, G), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().jx_grid_lattice(
-            Gr.data_ptr(), W.data_ptr(), YX.data_ptr(), SH.data_ptr(),
-            out.data_ptr(), T, B, G, n, p, Gr.stride(0), W.stride(0),
-            YX.stride(0), float(ridge), float(nf - (p + 1)),
+            Gr.data_ptr(), W_split.data_ptr(), YXp.data_ptr(), SH.data_ptr(),
+            out.data_ptr(), T, B, G, n, p, Gr.stride(0), kpad, kpad,
+            float(ridge), float(nf - (p + 1)), int(prec == "default"),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "grid_neg_reml_lattice")
     grid_neg_reml_lattice.launches += 1
