@@ -11,11 +11,12 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     mode, p and traits per block;
  3. K1 decode+rotate on the card in both modes vs its plain PyTorch
     versions at the main path's launch shape (one resident superblock:
-    M = 299,008 SNP rows, n = 1410), at one 2048-row block, at a ragged
-    shape (M = 1000, n = 997) and at a 2048-row block on a random U, rtol
-    1e-5 / atol 1e-4, "high" also within matrix-relative 1e-5 of
-    "highest" on the random U (the gap on an eigenbasis is printed beside
-    the plain versions'); the worst column of "highest", both modes'
+    M = 299,008 SNP rows, n = 1410), at the -lowrank route's launch shape
+    (the same M and n, N = k = 1000 orthonormal columns), at one 2048-row
+    block, at a ragged shape (M = 1000, n = 997) and at a 2048-row block on
+    a random U, rtol 1e-5 / atol 1e-4, "high" also within matrix-relative
+    1e-5 of "highest" on the random U (the gap on an eigenbasis is printed
+    beside the plain versions'); the worst column of "highest", both modes'
     times and the library yardstick (cuBLAS f32 on the decoded block);
  4. K2 λ-lattice on the card in both modes (JX_TPU_GRID_MXU_PREC highest
     and default), each vs its own plain version (G = 256, n = 1410:
@@ -53,13 +54,25 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     16,384 SNPs of every trait and model (Δ(-log10 p) <= 0.05, same top 5);
  8. the other routes on a -bimrange window of ~29,600 SNPs: ``-lmm
     -scan-method brent`` against phase 5's grid rows (Δ(-log10 p) <=
-    5e-3), and ``-lm2 -fvlmm2 -farmcpu`` with a covariate file against
-    CPU rescans (the first 4,096 window SNPs for the interaction scans,
-    the whole window for FarmCPU; Δ(-log10 p) <= 0.05, same top 5);
- 9. each phase's wall, a JSON line with each kernel's numbers (time,
-    plain time, bound and what bounds it, library time; K1's "high" mode,
-    K2's "default" mode and its trait axis in both modes beside them; the
-    launches of each path), then the result line.
+    5e-3), and ``-lm2 -fvlmm2 -farmcpu -algwas`` with a covariate file
+    against CPU rescans (the first 4,096 window SNPs for the interaction
+    scans, the whole window for FarmCPU and for ALGWAS's stage-2 scan on
+    the markers its stage 1 selected on the card; Δ(-log10 p) <= 0.05,
+    same top 5);
+ 9. the sparse and low-rank routes on phase 5's panel and trait: ``jx gwas
+    -lowrank 1000 -splmm -splmm-exact`` (no -force-model, so the low-rank
+    LMM->LM switch runs); checks the TSVs, that K1 launched once per
+    resident superblock of the -lowrank scan (and K2 never), and CPU
+    rescans with the same basis / sparse GRM: the first 16,384 SNPs for
+    -lowrank and -splmm-exact, every SNP for -splmm (its γ is calibrated
+    on 500 markers drawn from the whole panel), Δ(-log10 p) <= 0.05, same
+    top 5, λ_null within 2e-3; prints per-stage seconds, the sparse GRM's
+    nnz share and largest component, the rank k, each route's λ_null, and
+    -splmm-exact against phase 5's dense -lmm at the planted QTLs;
+10. each phase's wall, a JSON line with each kernel's numbers (time,
+    plain time, bound and what bounds it, library time; K1's "high" mode
+    and its -lowrank shape, K2's "default" mode and its trait axis in both
+    modes beside them; the launches of each path), then the result line.
 """
 
 from __future__ import annotations
@@ -89,6 +102,7 @@ GRID = 256
 TRAITS = ("test0", "t1", "t2", "t3", "flat")  # the trait-level phenotype
 MODELS = ("lm", "lmm", "lmm2", "fvlmm")
 WINDOW = "1:0.1-1.6"  # -bimrange of phase 8: ~29,580 SNPs of chromosome 1
+LOWRANK_Q = 1000  # -lowrank's kinship SNPs in phase 9: rank k = 1000 < n
 HEADER = "chrom\tpos\tsnp\tallele0\tallele1\taf\tmiss\tbeta\tse\tchisq\tpwald"
 
 
@@ -218,7 +232,7 @@ def check_k1(dev, M: int, n: int, U_np, seed: int, timed: bool,
         err = (got[prec] - want).abs()
         ok = bool((err <= 1e-4 + 1e-5 * want.abs()).all())
         max_err = float(err.max())
-        require(ok, f"K1 {prec} M={M} n={n}: outside rtol 1e-5 / atol 1e-4 "
+        require(ok, f"K1 {prec} M={M} n={n} N={U.shape[1]}: outside rtol 1e-5 / atol 1e-4 "
                     f"(max |err| {max_err:.3g})")
         if prec == "highest":
             col_err = err.max(dim=0).values
@@ -253,7 +267,8 @@ def check_k1(dev, M: int, n: int, U_np, seed: int, timed: bool,
         lib = f"; library (cuBLAS f32 on the decoded block) {res['library']:.4f} ms"
         del decoded
     t = lambda r: f", kernel {r[1]:.4f} ms, plain {r[2]:.4f} ms" if timed else ""
-    say(f"phase 3 K1 decode_rotate M={M} n={n}: ok; highest max|err|={res['highest'][0]:.3g}"
+    say(f"phase 3 K1 decode_rotate M={M} n={n} N={U.shape[1]}: ok; highest max|err|="
+        f"{res['highest'][0]:.3g}"
         f"{t(res['highest'])}; worst column {worst[0]} ({worst[1]:.3g}), near-constant "
         f"column {worst[2]} ({worst[3]:.3g}); high max|err|={res['high'][0]:.3g}"
         f"{t(res['high'])}, {rel:.3g} from highest, matrix-relative (plain "
@@ -594,8 +609,8 @@ def run_main_path(d: str, m: int):
 def cross_check(prefix: str, pheno: str, rows, summary) -> dict:
     """The first CROSS_SNPS QC'd SNPs rescanned with the plain versions on
     the CPU, from the same cached GRM and the same eigendecomposition.
-    Returns the CPU side (the analysis samples' packed genotypes and basis)
-    for the later phases' rescans."""
+    Returns the CPU side (the analysis samples' packed genotypes and basis,
+    the full sample set's packed genotypes) for the later phases' rescans."""
     from janusx_tpu_torch.core.spectral import eigh_grm
     from janusx_tpu_torch.io.gfreader import load_raw_packed
     from janusx_tpu_torch.io.packed import QcParams
@@ -609,7 +624,8 @@ def cross_check(prefix: str, pheno: str, rows, summary) -> dict:
     y_all, _ = load_phenotype(pheno).select(["0"]).align(raw.samples)
     keep = analysis_sample_index(y_all[:, 0])
     qc = QcParams()
-    K = load_or_build_grm(prefix, raw.prepare(qc), qc.maf, qc.geno)
+    full = raw.prepare(qc)
+    K = load_or_build_grm(prefix, full, qc.maf, qc.geno)
     pg = raw.prepare(qc, sample_idx=keep)
     basis = eigh_grm(K[np.ix_(keep, keep)], diag_ridge=1e-6)
     k = min(CROSS_SNPS, pg.m)
@@ -624,7 +640,7 @@ def cross_check(prefix: str, pheno: str, rows, summary) -> dict:
     say(f"phase 6 cross-check {k} SNPs on cpu: max Δ(-log10 p)={dmax:.3g}, top-5 equal, "
         f"λ_null card={lam_card:.6g} cpu={null.lbd:.6g} (rel {rel:.2g}); "
         f"{time.monotonic() - t0:.2f} s")
-    return dict(keep=keep, pg=pg, head=head, basis=basis, y=y_all[keep, 0])
+    return dict(keep=keep, pg=pg, head=head, basis=basis, y=y_all[keep, 0], full=full)
 
 
 def write_traits(prefix: str, Y, cpu) -> tuple:
@@ -751,8 +767,8 @@ def run_routes(d: str, prefix: str, pheno: str, rows5, qtl_ids, Y, cpu) -> dict:
                       for j, (a, b) in enumerate(rng.normal(size=(N_SAMPLES, 2))))
     out = os.path.join(d, "out8g")
     _, wall_g, _ = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lm2", "-fvlmm2",
-                            "-farmcpu", "-c", cov_path, "-bimrange", WINDOW, "-n", "0",
-                            "-o", out], "phase 8 lm2/fvlmm2/farmcpu")
+                            "-farmcpu", "-algwas", "-c", cov_path, "-bimrange", WINDOW,
+                            "-n", "0", "-o", out], "phase 8 lm2/fvlmm2/farmcpu/algwas")
     keep, pg, basis = cpu["keep"], cpu["pg"], cpu["basis"]
     # a set, not np.isin: on object arrays np.isin compares element by element
     window = {r[2] for r in rows}
@@ -785,7 +801,114 @@ def run_routes(d: str, prefix: str, pheno: str, rows5, qtl_ids, Y, cpu) -> dict:
     say(f"phase 8 stages (s): {stage_line(summary)}")
     say(f"phase 8 lm2/fvlmm2/farmcpu: {win.m} SNPs; cpu rescan (gxe {k} SNPs, farmcpu "
         f"the window) max Δ(-log10 p)={worst:.3g}, top-5 equal; FarmCPU {sig} planted "
-        f"QTLs at p < 5e-8; cli {wall_g:.2f} s, phase {time.monotonic() - t0:.2f} s")
+        f"QTLs at p < 5e-8; cli {wall_g:.2f} s")
+    check_algwas(os.path.join(out, "jx.test0.ALGWAS.assoc.tsv"), win, y, cov, qtl_ids)
+    say(f"phase 8 done in {time.monotonic() - t0:.2f} s")
+    return launches
+
+
+def check_algwas(path: str, win, y, cov, qtl_ids) -> None:
+    """ALGWAS on phase 8's window: stage 1 (the FISTA path on the card,
+    its (m, n) f32 block resident) run again through ``algwas_scan`` gives
+    the CLI's TSV; its stage 2 (the conditional LM scan with the selected
+    markers as covariates) rescanned on the CPU from the same selection
+    agrees within Δ(-log10 p) 0.05 with the same top 5."""
+    from janusx_tpu_torch.models import algwas, farmcpu, lm
+
+    header, rows = read_tsv(path)
+    require([r[2] for r in rows] == list(win.sites.snp), "ALGWAS: SNP rows differ")
+    tsv = p_col(rows, header)
+    t1 = time.monotonic()
+    card = algwas.algwas_scan(win, y, cov)  # ends in a host copy of its path
+    wall = time.monotonic() - t1
+    sel = card.selected
+    require(0 < len(sel) <= 200, f"ALGWAS selected {len(sel)} markers")
+    d_card = agree(card.result.pwald, tsv, "phase 8 ALGWAS rerun vs TSV", 1e-4)
+    cov2 = np.concatenate([cov, farmcpu._decode_rows(win, sel).T], axis=1)
+    cpu = lm.lm_scan(win, y, cov2, device="cpu")
+    cpu.pwald[sel] = farmcpu._qtn_pvalues(win, y, cov, sel)
+    d_cpu = agree(tsv, cpu.pwald, "phase 8 ALGWAS stage 2 cpu rescan", 0.05)
+    hits = sum(1 for i in sel if win.sites.snp[i] in qtl_ids)
+    steps = int(np.isfinite(card.ebic_path).sum())
+    say(f"phase 8 algwas: {win.m} SNPs, stage 1 on the card selected {len(sel)} markers "
+        f"({hits} planted QTLs) over {steps} of {len(card.ebic_path)} path steps under "
+        f"the cap; rerun vs TSV max Δ(-log10 p)={d_card:.3g}; stage 2 cpu rescan max "
+        f"Δ(-log10 p)={d_cpu:.3g}, top-5 equal; algwas_scan {wall:.2f} s")
+
+
+
+def run_lowrank_sparse(d: str, prefix: str, pheno: str, rows5, qtl_ids, cpu) -> dict:
+    """Phase 9: ``jx gwas -lowrank 1000 -splmm -splmm-exact`` on phase 5's
+    panel and trait, without -force-model. Returns the launches."""
+    from janusx_tpu_torch.models import fastlmm, splmm
+    from janusx_tpu_torch.models.lmm import lattice_superblock
+    from janusx_tpu_torch.models.sparse_spectral import BlockSpectralK
+    from janusx_tpu_torch.io.packed import QcParams
+    from janusx_tpu_torch.utils.cache import load_or_build_sparse_grm
+
+    t0 = time.monotonic()
+    out = os.path.join(d, "out9")
+    _, wall, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lowrank",
+                                 str(LOWRANK_Q), "-splmm", "-splmm-exact", "-n", "0",
+                                 "-o", out], "phase 9")
+    with open(os.path.join(out, "jx.gwas.summary.json")) as fh:
+        summary = json.load(fh)
+    runs = {r["requested"]: r for r in summary["runs"]}
+    require([runs[m]["model"] for m in ("lowrank", "splmm", "splmm-exact")]
+            == ["lowrank", "splmm", "splmm-exact"], f"phase 9 runs {list(runs.values())}")
+    m = len(rows5)
+    supers = -(-m // lattice_superblock(N_PHENO, GRID, 2048))
+    require(launches == {"decode_rotate": supers, "grid_neg_reml_lattice": 0},
+            f"phase 9 launches {launches}, expected K1 once per -lowrank superblock "
+            f"({supers}) and no K2")
+    tsv = {}
+    for tag in ("FaSTLMM", "SparseLMM", "SparseLMM2"):
+        header, rows = read_tsv(os.path.join(out, f"jx.test0.{tag}.assoc.tsv"))
+        require(header == HEADER and [r[2] for r in rows] == [r[2] for r in rows5],
+                f"{tag}: header or SNP rows differ from phase 5's")
+        tsv[tag] = p_col(rows, header)
+        require(bool(np.all(np.isfinite(tsv[tag]) & (tsv[tag] > 0))), f"{tag}: bad p")
+    say(f"phase 9 stages (s): {stage_line(summary)}")
+
+    # the CPU side, from the same basis and the same (cached) sparse GRM
+    t1 = time.monotonic()
+    keep, head, y = cpu["keep"], cpu["head"], cpu["y"]
+    k = head.m
+    lrb = fastlmm.lowrank_basis_from_snps(cpu["pg"], q=LOWRANK_Q)
+    qc = QcParams()
+    Ksp = load_or_build_sparse_grm(prefix, cpu["full"], qc.maf, qc.geno, 0.05)
+    Ksub = Ksp[keep][:, keep].tocsc()
+    comps = BlockSpectralK.from_sparse(Ksub)
+    res = {"FaSTLMM": fastlmm.fastlmm_scan(head, lrb, y, device="cpu"),
+           "SparseLMM2": splmm.splmm_exact_scan(head, Ksub, y, device="cpu"),
+           "SparseLMM": splmm.splmm_grammar_scan(cpu["pg"], Ksub, y, device="cpu")}
+    worst, lams = 0.0, {}
+    for (tag, (r, null)), route in zip(res.items(), ("lowrank", "splmm-exact", "splmm")):
+        lam = null.lbd if tag == "FaSTLMM" else null["lambda_null"]
+        lam_card = runs[route]["lambda_null"]
+        require(abs(lam - lam_card) <= 2e-3 * lam_card,
+                f"{tag}: λ_null card {lam_card:.6g}, cpu {lam:.6g}")
+        lams[route] = lam_card
+        n_cmp = r.m
+        worst = max(worst, agree(tsv[tag][:n_cmp], r.pwald, f"phase 9 {tag} cpu rescan",
+                                 0.05))
+    # the exact sparse model against phase 5's dense LMM at the planted QTLs
+    # (different kinships: printed only)
+    dense = np.array([float(r[10]) for r in rows5])
+    at = np.array([r[2] in qtl_ids for r in rows5])
+    lp = lambda p: -np.log10(p[at])
+    sig = {t: int((tsv[t][at] < 5e-8).sum()) for t in tsv}
+    say(f"phase 9 lowrank/splmm: rank k={lrb.k} from {LOWRANK_Q} SNPs; sparse GRM (0.05) on "
+        f"the {len(keep)} analysis samples: nnz share {Ksub.nnz / len(keep) ** 2:.5f}, "
+        f"largest component {comps.max_comp}; λ_null lowrank {lams['lowrank']:.6g}, "
+        f"splmm {lams['splmm']:.6g}, splmm-exact {lams['splmm-exact']:.6g}; K1 launches "
+        f"{launches['decode_rotate']} ({supers} superblocks); cpu rescan (lowrank and "
+        f"splmm-exact {k} SNPs, splmm all {m}) max Δ(-log10 p)={worst:.3g}, top-5 equal "
+        f"({time.monotonic() - t1:.2f} s); planted QTLs at p < 5e-8: {sig} (dense lmm "
+        f"{int((dense[at] < 5e-8).sum())}); splmm-exact vs dense lmm at the QTLs: "
+        f"-log10 p {np.round(lp(tsv['SparseLMM2']), 2).tolist()} vs "
+        f"{np.round(lp(dense), 2).tolist()}; cli {wall:.2f} s, phase "
+        f"{time.monotonic() - t0:.2f} s")
     return launches
 
 
@@ -804,7 +927,10 @@ def check_kernels(dev) -> dict:
     rows = lattice_superblock(N_PHENO, GRID, config.DEFAULT_SNP_BLOCK)
     basis, ys, rng = _basis(N_PHENO, seed=1, traits=4)
     basis_r, ys_r, rng_r = _basis(997, seed=2, traits=3)
+    # -lowrank rotates by its k-column kinship basis: orthonormal columns
+    U_lr = np.linalg.qr(np.random.default_rng(15).normal(size=(N_PHENO, LOWRANK_Q)))[0]
     k1 = [check_k1(dev, rows, N_PHENO, basis.U, seed=11, timed=True),
+          check_k1(dev, rows, N_PHENO, U_lr, seed=15, timed=True),
           check_k1(dev, 2048, N_PHENO, basis.U, seed=12, timed=True),
           check_k1(dev, 1000, 997, basis_r.U, seed=13, timed=False),
           check_k1(dev, 2048, N_PHENO, rng.normal(size=(N_PHENO, N_PHENO)) / N_PHENO ** 0.5,
@@ -824,15 +950,18 @@ def check_kernels(dev) -> dict:
     # "default" one), or each operand read and each output written once at
     # 3.35 TB/s, whichever is longer
     n, R = N_PHENO, 2 * 1 + 2 * 1 + 3
-    k1_bytes = rows * (-(-n // 4) + 4 + 4 * n) + 4 * n * n
+    k1_bytes = lambda N: rows * (-(-n // 4) + 4 + 4 * N) + 4 * n * N
     k2_bytes = lambda T: 4 * (rows * n + GRID * n + (T + 1) * n + T * R * GRID + T * rows * GRID)
     k2_flops = lambda T, passes: 2.0 * (2 + T) * rows * GRID * n * passes
     return dict(k1_err=k1_err["highest"], k1_ms=k1[0]["highest"][1],
                 k1_plain=k1[0]["highest"][2], k1_lib=k1[0]["library"],
-                k1_bound=bound(2.0 * rows * n * n * 6, k1_bytes),
+                k1_bound=bound(2.0 * rows * n * n * 6, k1_bytes(n)),
+                k1_lr_err=k1[1]["highest"][0], k1_lr_ms=k1[1]["highest"][1],
+                k1_lr_plain=k1[1]["highest"][2], k1_lr_lib=k1[1]["library"],
+                k1_lr_bound=bound(2.0 * rows * n * LOWRANK_Q * 6, k1_bytes(LOWRANK_Q)),
                 k1_high_err=k1_err["high"], k1_high_ms=k1[0]["high"][1],
                 k1_high_plain=k1[0]["high"][2],
-                k1_high_bound=bound(2.0 * rows * n * n * 3, k1_bytes),
+                k1_high_bound=bound(2.0 * rows * n * n * 3, k1_bytes(n)),
                 k2_err=k2_err["highest"], k2=k2[0], k2t=k2t[0],
                 k2_default_err=k2_err["default"],
                 k2_bound={(T, m): bound(k2_flops(T, 6 if m == "highest" else 1), k2_bytes(T))
@@ -918,6 +1047,9 @@ def main() -> int:
         t0 = time.monotonic()
         paths["brent"] = run_routes(d, prefix, pheno, rows, qtl_ids, Y, cpu)
         walls["routes"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        paths["lowrank"] = run_lowrank_sparse(d, prefix, pheno, rows, qtl_ids, cpu)
+        walls["lowrank_sparse"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]
@@ -934,6 +1066,10 @@ def main() -> int:
          # the same kernel in its "high" (bf16x3) mode, off the main path's default
          "high_max_abs_err": k["k1_high_err"], "high_ms": k["k1_high_ms"],
          "high_plain_ms": k["k1_high_plain"], "high_bound_ms": k["k1_high_bound"][0],
+         # at the -lowrank route's launch shape (N = k columns)
+         "lowrank_max_abs_err": k["k1_lr_err"], "lowrank_ms": k["k1_lr_ms"],
+         "lowrank_plain_ms": k["k1_lr_plain"], "lowrank_bound_ms": k["k1_lr_bound"][0],
+         "lowrank_bound_by": k["k1_lr_bound"][1], "lowrank_library_ms": k["k1_lr_lib"],
          "launches_by_path": by_path("decode_rotate")},
         {"name": "grid_neg_reml_lattice", "route": "cuda", "source": src + "lattice.cu",
          "replaces": ref + "232", "launches": launches["grid_neg_reml_lattice"],

@@ -1,9 +1,9 @@
 """`jx gwas` for the port: the reference CLI surface (build_parser is a
-copy of janusx_tpu/cli/gwas.py's) and its main, running the dense-GRM
-routes (-lm, -lmm, -lmm2, -fvlmm, -lm2, -fvlmm2, -farmcpu, -frgwas) with
--trait-level, -bimrange, -global and the -q* QTN panels. Flags that select
-a route not ported yet raise NotImplementedError naming their ROADMAP
-item."""
+copy of janusx_tpu/cli/gwas.py's) and its main, running every route of
+janusx_tpu's: -lm, -lmm, -lmm2, -fvlmm, -lm2, -fvlmm2, -splmm, -splmm-exact
+(with -spk 1|2|FILE), -lowrank (with -gmodel and -lowrank-prune),
+-farmcpu, -frgwas and -algwas, with -trait-level, -bimrange, -global and
+the -q* QTN panels."""
 
 from __future__ import annotations
 
@@ -114,10 +114,6 @@ def build_parser(prog="jx gwas", dev: bool = False) -> argparse.ArgumentParser:
     return p
 
 
-# flags that select a route not ported yet, with their ROADMAP queue 1 item
-_UNPORTED = {"splmm": 17, "splmm_exact": 17, "lowrank": 16, "algwas": 15}
-
-
 def main(argv=None) -> int:
     import sys
 
@@ -134,25 +130,21 @@ def main(argv=None) -> int:
         raise SystemExit(
             "-fast has been removed (reference parse_args): use "
             "model-specific routes (-fvlmm, -splmm, -lowrank)")
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"janusx_tpu_torch gwas: -{flag.replace('_', '-')} is not ported "
-                f"yet (ROADMAP queue 1, item {item})")
-    if args.grm_sparse not in ("1", "2"):
-        raise NotImplementedError(
-            "janusx_tpu_torch gwas: a precomputed -spk file is not ported yet "
-            "(ROADMAP queue 1, item 17)")
     if args.farmcpu_nbin < 1:
         raise SystemExit("--farmcpu-nbin must be >= 1.")
     if getattr(args, "strict_train", False):
         # strict per-trait re-preparation is the default here; the flag
         # just forces -global off for reference drop-in command lines
         args.global_stats = False
-    models = [m for m in ("lm", "lm2", "fvlmm2", "lmm", "lmm2", "fvlmm", "farmcpu",
-                          "frgwas") if getattr(args, m)]
+    # the reference's model order (janusx_tpu/cli/gwas.py:138-162)
+    models = [m for m in ("lm", "lm2", "fvlmm2", "lmm", "lmm2", "fvlmm") if getattr(args, m)]
+    models += [m for m, on in (("splmm", args.splmm is not None),
+                               ("splmm-exact", args.splmm_exact is not None),
+                               ("lowrank", args.lowrank is not None),
+                               ("farmcpu", args.farmcpu), ("frgwas", args.frgwas),
+                               ("algwas", args.algwas)) if on]
     if not models:
-        raise SystemExit("select at least one model (-lm/-lmm/-lmm2/-fvlmm/-farmcpu)")
+        raise SystemExit("select at least one model (-lm/-lmm/-lmm2/-fvlmm/-splmm/-farmcpu)")
     common.apply_mem_budget(args)
     prefix = common.out_prefix(args)
     common.setup_logging(args.verbose, prefix, "gwas")
@@ -172,7 +164,19 @@ def main(argv=None) -> int:
         het=args.het,
         grm_method=args.grm_method,
         force_model=args.force_model,
+        splmm_cutoff=(
+            args.splmm if args.splmm is not None
+            else args.splmm_exact if args.splmm_exact is not None
+            else 0.05
+        ),
+        # -splmm 0.01 -splmm-exact 0.2 in one run: each route keeps its own
+        # cutoff (the reference carries one cutoff per splmm run config)
+        splmm_exact_cutoff=args.splmm_exact,
+        lowrank_snps=(args.lowrank if args.lowrank is not None else 4096),
+        genetic_model=args.genetic_model,
         global_stats=args.global_stats,
+        lowrank_ld_prune=args.lowrank_prune,
+        sparse_grm=args.grm_sparse,
         scan_ranges=tuple(args.bimrange or ()),
         scan_method=args.scan_method,
         trait_level=args.trait_level,

@@ -9,7 +9,7 @@ import sys
 from janusx_tpu_torch import __version__
 
 _MODULES: dict[str, tuple[str, str]] = {
-    "gwas": ("janusx_tpu_torch.cli.gwas", "GWAS scans (ported: -lmm)"),
+    "gwas": ("janusx_tpu_torch.cli.gwas", "GWAS scans (every jx gwas route but the multi-device mesh)"),
 }
 
 

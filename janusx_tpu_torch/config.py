@@ -77,6 +77,8 @@ KNOBS: dict = {
     "JX_TPU_GRM_FLUSH": (int, 16, "SNP blocks accumulated in f32 before each f64 flush in the GRM build"),
     "JX_TPU_GRID_MXU_PREC": (str, "highest", "lambda-lattice gram precision: highest (f32-accurate: exact bf16 pieces on the tensor cores, 6 passes) | default (the reference's default: products and weights rounded to bf16, 1 pass; selection-grade)"),
     "JX_TPU_ROTATE_PREC": (str, "highest", "decode+rotate precision: highest (f32-accurate: exact bf16 pieces on the tensor cores, 6 passes) | high (the reference's bf16x3, 3 passes; up to ~3e-5 matrix-relative from highest on an eigenbasis)"),
+    "JX_TPU_SPARSE_CUTOFF": (float, 0.05, "sparse-GRM off-diagonal threshold (-splmm default)"),
+    "JX_TPU_SPARSE_MAX_DENSE_COMP": (int, 4096, "largest kinship component eigendecomposed densely; bigger (percolated) ones take per-lambda sparse-LU factors"),
     "JX_TPU_LOWMEM": (bool, False, "force the disk-backed windowed genotype path regardless of size"),
     "JX_TPU_LOWMEM_BYTES": (int, None, "packed-size threshold (bytes) above which inputs stream from disk"),
     "JX_TPU_CACHE_BESIDE_SOURCE": (bool, False, "place ~name genotype caches next to the source (reference layout)"),

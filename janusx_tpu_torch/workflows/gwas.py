@@ -1,19 +1,21 @@
-"""GWAS pipeline orchestration for the dense-GRM family of ``jx gwas``
-(port of janusx_tpu/workflows/gwas.py without its sparse, low-rank and
-ALGWAS routes):
+"""GWAS pipeline orchestration of ``jx gwas`` (port of
+janusx_tpu/workflows/gwas.py):
 
-  load genotype -> QC/pack -> GRM (all genotyped samples, full-set QC)
-  -> optional PCs -> [-trait-level: one batched scan per model over the
-  traits sharing a sample mask] -> per trait: subset samples (pheno+cov
-  non-missing), re-prepare the packed subset (or keep the full-set stats
-  under -global), eigh(K_subset + 1e-6 I), per model the LMM->LM switch
-  test (unless force_model), scan, TSV -> combined trait-level TSVs,
-  summary, run history.
+  load genotype -> QC/pack -> GRM (all genotyped samples, full-set QC;
+  only when a dense-GRM model or PCs ask for it) and/or the thresholded
+  sparse GRM (band-streamed with a .jxgrm cache, or a precomputed -spk
+  file aligned by its .id sidecar) -> optional PCs -> [-trait-level: one
+  batched scan per model over the traits sharing a sample mask] -> per
+  trait: subset samples (pheno+cov non-missing), re-prepare the packed
+  subset (or keep the full-set stats under -global), eigh(K_subset + 1e-6
+  I) or the low-rank kinship basis, per model the LMM->LM switch test
+  (unless force_model), scan, TSV -> combined trait-level TSVs, summary,
+  run history.
 
-Models: lm, lmm, lmm2, fvlmm, lm2, fvlmm2, farmcpu, frgwas. The others
-raise NotImplementedError naming their ROADMAP item; nothing falls through
-to another route. Each stage's wall seconds go into the run summary
-(``stages``: the shared stages at the top level, each run's own under it).
+Models: see MODELS. Only the SNP-sharded ``mesh`` of janusx_tpu is not
+ported (ROADMAP queue 1, item 23). Each stage's wall seconds go into the
+run summary (``stages``: the shared stages at the top level, each run's
+own under it).
 """
 
 from __future__ import annotations
@@ -42,17 +44,19 @@ from janusx_tpu_torch.utils.progress import stage
 
 log = logging.getLogger("janusx_tpu_torch.gwas")
 
-MODELS = ("lm", "lmm", "lmm2", "fvlmm", "lm2", "fvlmm2", "farmcpu", "frgwas")
-# routes of janusx_tpu not ported yet, with their ROADMAP queue 1 item
-UNPORTED = {"splmm": 17, "splmm-exact": 17, "lowrank": 16, "algwas": 15}
+MODELS = ("lm", "lmm", "lmm2", "fvlmm", "lm2", "fvlmm2", "farmcpu", "frgwas",
+          "splmm", "splmm-exact", "lowrank", "algwas")
 _MIXED = ("lmm", "lmm2", "fvlmm")
+_SPARSE = ("splmm", "splmm-exact")
 _TAGS = {"lm": "LM", "lmm": "LMM", "lmm2": "LMM2", "fvlmm": "FvLMM",
-         "farmcpu": "FarmCPU", "frgwas": "FarmCPU", "lm2": "LM2", "fvlmm2": "FvLMM2"}
+         "splmm": "SparseLMM", "splmm-exact": "SparseLMM2",
+         "farmcpu": "FarmCPU", "frgwas": "FarmCPU", "algwas": "ALGWAS",
+         "lm2": "LM2", "fvlmm2": "FvLMM2", "lowrank": "FaSTLMM"}
 
 
 @dataclass
 class GwasConfig:
-    """janusx_tpu's GwasConfig without the sparse, low-rank and mesh knobs."""
+    """janusx_tpu's GwasConfig without its mesh knob (n_devices)."""
 
     genotype: str
     phenotype: str
@@ -68,10 +72,21 @@ class GwasConfig:
     force_model: bool = False
     block: int = config.DEFAULT_SNP_BLOCK
     write_tsv: bool = True
+    splmm_cutoff: float = config.knob("JX_TPU_SPARSE_CUTOFF")  # reference default 0.05 (workflow.py:6701)
+    # -splmm-exact's own cutoff (None = splmm_cutoff); the reference keeps
+    # one cutoff per run config, so the two routes may differ in one run
+    splmm_exact_cutoff: float | None = None
+    lowrank_snps: int = 4096  # kinship SNPs for the -lowrank FaST-LMM route
     # -global: reuse the full-sample row-stat pass for trait subsets
     # instead of strict-train re-preparation (reference workflow.py:6895)
     global_stats: bool = False
+    genetic_model: str = "add"  # add|dom|rec|het (fastlmm_lowrank.rs)
+    lowrank_ld_prune: bool = False  # LD-prune the kinship SNP picks
     scan_method: str = config.knob("JX_TPU_SCAN_METHOD")  # lmm lambda search: "grid" | "brent"
+    # -spk: sparse-GRM source for the splmm routes — "1" centered,
+    # "2" standardized, or a precomputed .jxgrm/.spgrm path
+    # (reference workflow.py -spk/--grm-sparse)
+    sparse_grm: str = "1"
     # -bimrange chr:start-end (repeatable): restrict only the final scan;
     # GRM/PCA/covariate prep still use the full genotype
     scan_ranges: tuple = ()
@@ -85,7 +100,7 @@ class GwasConfig:
     # and combined multi-trait TSVs beside the per-trait files
     trait_level: bool = False
     # -qvcf/-qhmp/-qbfile/-qfile: alternate QTN-search panel for the
-    # FarmCPU stage-1 selection (reference dev flags)
+    # FarmCPU/ALGWAS stage-1 selection (reference dev flags)
     qtn_genotype: str | None = None
     use_cache: bool = True  # GRM npy+id cache with reference naming
 
@@ -157,16 +172,68 @@ def _timed(stages: dict, key: str, label: str):
 
 def _check_models(models) -> None:
     for m in models:
-        if m in UNPORTED:
-            raise NotImplementedError(
-                f"model {m!r} is not ported to janusx_tpu_torch yet (ROADMAP "
-                f"queue 1, item {UNPORTED[m]})")
         if m not in MODELS:
             raise ValueError(f"unknown model: {m}")
     if "farmcpu" in models and "frgwas" in models:
         # reference parity (assoc/workflow.py:6979): both share the FarmCPU
         # TSV tag, so running both would overwrite one output
         raise ValueError("only one of farmcpu / frgwas may be requested")
+
+
+def _sparse_grms(cfg: GwasConfig, samples, pg_full, stages: dict):
+    """The -splmm routes' thresholded GRMs on all genotyped samples:
+    (K for -splmm, K for -splmm-exact when its own cutoff differs, else
+    None). Built band by band with a .jxgrm cache (reference
+    _ensure_splmm_sparse_grm, workflow_model_packed.py:807), or read from
+    a precomputed -spk file whose .id sidecar aligns its rows to the
+    genotype samples (janusx_tpu/workflows/gwas.py:214-279)."""
+    from janusx_tpu_torch.utils.cache import _read_id_column, load_or_build_sparse_grm
+
+    if cfg.sparse_grm not in ("1", "2"):
+        from janusx_tpu_torch.io.jxgrm import read_jxgrm
+
+        with _timed(stages, "sparse_grm", "sparse GRM (precomputed)"):
+            Ksp = read_jxgrm(cfg.sparse_grm).tocsr()
+        id_candidates = [cfg.sparse_grm + ".id",
+                         os.path.splitext(cfg.sparse_grm)[0] + ".id"]
+        id_path = next((c for c in id_candidates if os.path.exists(c)), None)
+        if id_path is not None:
+            grm_ids = _read_id_column(id_path)
+            if len(grm_ids) != Ksp.shape[0]:
+                raise ValueError(f"-spk id sidecar has {len(grm_ids)} ids, GRM dim "
+                                 f"{Ksp.shape[0]}")
+            pos = {g: i for i, g in enumerate(grm_ids)}
+            missing = [str(s_) for s_ in samples if str(s_) not in pos]
+            if missing:
+                raise ValueError(f"{len(missing)} genotype samples absent from the "
+                                 f"-spk GRM ids, e.g. {missing[:3]}")
+            perm = np.array([pos[str(s_)] for s_ in samples])
+            if not np.array_equal(perm, np.arange(len(perm))):
+                Ksp = Ksp[perm][:, perm].tocsr()
+        elif Ksp.shape[0] != len(samples):
+            raise ValueError(f"-spk GRM has {Ksp.shape[0]} samples, genotype has "
+                             f"{len(samples)} (and no .id sidecar to align by)")
+        else:
+            log.warning("-spk GRM has no .id sidecar: assuming its rows "
+                        "already match the genotype sample order")
+        return Ksp, None
+    sp_method = 2 if cfg.sparse_grm == "2" else cfg.grm_method
+
+    def build(cutoff, label):
+        with _timed(stages, "sparse_grm", label):
+            return load_or_build_sparse_grm(
+                cfg.genotype, pg_full, cfg.maf, cfg.geno, cutoff, method=sp_method,
+                block=cfg.block, use_cache=cfg.use_cache)
+
+    Ksp = build(cfg.splmm_cutoff, "sparse GRM (band-streamed)")
+    exact_cut = _exact_cutoff(cfg)
+    if "splmm-exact" in cfg.models and exact_cut != cfg.splmm_cutoff:
+        return Ksp, build(exact_cut, "sparse GRM (exact-route cutoff)")
+    return Ksp, None
+
+
+def _exact_cutoff(cfg: GwasConfig) -> float:
+    return cfg.splmm_cutoff if cfg.splmm_exact_cutoff is None else cfg.splmm_exact_cutoff
 
 
 def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
@@ -199,6 +266,9 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                 cfg.genotype, pg_full, cfg.maf, cfg.geno, method=cfg.grm_method,
                 block=cfg.block, use_cache=cfg.use_cache,
             )
+    # sparse-only model sets never build the dense n² GRM
+    Ksp, Ksp_exact = (_sparse_grms(cfg, raw.samples, pg_full, stages)
+                      if any(m in _SPARSE for m in cfg.models) else (None, None))
     pcs_full = None
     if cfg.n_pcs > 0:
         pcs_full = load_or_build_pcs(
@@ -342,6 +412,27 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                 else:
                     log.info("trait %s: null LRT p=%.3g < 0.05, keeping %s",
                              trait, switch_p, model)
+            if model == "lowrank":
+                # FaST-LMM: kinship from q SNP columns, its basis cached per
+                # sample mask and made from the full SNP set even under
+                # -bimrange (the restriction is scan-only); the dense n² GRM
+                # is never formed
+                from janusx_tpu_torch.models import fastlmm as fl
+
+                if entry.get("lrb") is None:
+                    with _timed(rs, "lowrank_basis", f"low-rank kinship basis ({trait})"):
+                        entry["lrb"] = fl.lowrank_basis_from_snps(
+                            entry["pg"], q=cfg.lowrank_snps, method=cfg.grm_method,
+                            ld_prune=cfg.lowrank_ld_prune)
+                rot_lr = fl.make_rotated_lr(entry["lrb"], y_t, cov_t)
+                null = None
+                if not cfg.force_model:
+                    with _timed(rs, "null_fit", f"low-rank null fit ({trait})"):
+                        switch_p, null = fl.lowrank_switch_p(rot_lr)
+                    if switch_p >= 0.05:
+                        log.info("trait %s: null LRT p=%.3g >= 0.05, switching "
+                                 "lowrank -> lm", trait, switch_p)
+                        model = "lm"
             key = (str(trait), model)
             basis = get_basis(rs) if model in _MIXED + ("fvlmm2",) else None
             if model in ("lmm", "lmm2") and key not in batched:
@@ -365,6 +456,31 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                         pg_t, basis, y_t, cov_t, block=cfg.block,
                         lmm2=(model == "lmm2"), null=null, method=cfg.scan_method)
                     lbd_null = null.lbd
+                elif model == "lowrank":
+                    res, null = fl.fastlmm_scan(
+                        pg_t, entry["lrb"], y_t, cov_t, block=cfg.block,
+                        model=cfg.genetic_model, rot=rot_lr, null=null)
+                    lbd_null = null.lbd
+                elif model == "splmm":
+                    from janusx_tpu_torch.models.splmm import splmm_grammar_scan
+
+                    res, info = splmm_grammar_scan(
+                        pg_t, Ksp[keep][:, keep].tocsc(), y_t, cov_t,
+                        cutoff=cfg.splmm_cutoff, block=cfg.block)
+                    lbd_null = info["lambda_null"]
+                elif model == "splmm-exact":
+                    from janusx_tpu_torch.models.splmm import splmm_exact_scan
+
+                    Ksp_e = Ksp if Ksp_exact is None else Ksp_exact
+                    res, info = splmm_exact_scan(
+                        pg_t, Ksp_e[keep][:, keep].tocsc(), y_t, cov_t,
+                        cutoff=_exact_cutoff(cfg), block=cfg.block)
+                    lbd_null = info["lambda_null"]
+                elif model == "algwas":
+                    from janusx_tpu_torch.models.algwas import algwas_scan
+
+                    res = algwas_scan(pg_t, y_t, cov_t, block=cfg.block,
+                                      pg_qtn=entry.get("pg_qtn")).result
                 elif model in ("farmcpu", "frgwas"):
                     from janusx_tpu_torch.models import farmcpu as fc
 

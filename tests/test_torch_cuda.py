@@ -17,7 +17,11 @@ within K2's bounds (tests/test_pallas.py:102-110: the same finite/inf
 pattern, λ* within 2.02 grid spacings, > 50 % in the same grid cell,
 beta/se at λ* within rtol 2e-3). On random rows, whose REML profile is
 flat, one bf16 pass moves λ* further: those hold "default" to its own
-plain version only.
+plain version only. The routes without a kernel of their own (-lowrank,
+-splmm, -splmm-exact, -algwas) on the card against the same call on the
+CPU: Δ(-log10 p) <= 5e-3 (tests/test_scans.py:155), the device quadratic
+g'V^-1 g against the host f64 quad at rtol 2e-4
+(tests/test_sparse_path.py:106).
 """
 
 import numpy as np
@@ -306,3 +310,79 @@ def test_wrapper_checks_operands(dev):
                               torch.zeros((16, 4), dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):  # operands on two devices
         kernels.decode_rotate(pk, torch.zeros(8), torch.zeros((16, 4), device=dev))
+
+
+def test_decode_rotate_at_the_lowrank_width(dev):
+    """K1 at the -lowrank shape: N = k = 1000 columns (not a multiple of
+    64) of an orthonormal basis, in both modes against the plain versions."""
+    rng = np.random.default_rng(41)
+    packed, mean = _block(rng, 2048, 1410)
+    pk, mn = torch.from_numpy(packed).to(dev), torch.from_numpy(mean).to(dev)
+    U = torch.as_tensor(np.linalg.qr(rng.normal(size=(1410, 1000)))[0],
+                        dtype=torch.float32, device=dev)
+    for prec in ("highest", "high"):
+        got = kernels.decode_rotate(pk, mn, U, prec=prec, U_split=kernels.split_u(U))
+        assert got.shape == (2048, 1000)
+        torch.testing.assert_close(got, _PLAIN[prec](pk, mn, U), rtol=1e-5, atol=1e-4)
+
+
+def _dlogp(a, b):
+    return float(np.max(np.abs(np.log10(a) - np.log10(b))))
+
+
+@pytest.mark.parametrize("model", ["add", "dom", "rec", "het"])
+def test_fastlmm_scan_on_card_matches_cpu(dev, model):
+    """-lowrank on the card against the CPU (K1's plain version for add):
+    Δ(-log10 p) <= 5e-3, the same λ_null; K1 launched once per resident
+    superblock on the add route, never on the others."""
+    from janusx_tpu_torch.models import fastlmm
+    from janusx_tpu_torch.models.lmm import lattice_superblock
+
+    pg, _, Y, cov = _scan_problem(3000, 300, 1)
+    lrb = fastlmm.lowrank_basis_from_snps(pg, q=100)
+    kernels.reset_launches()
+    card, null = fastlmm.fastlmm_scan(pg, lrb, Y[:, 0], cov, block=512, superblock=1024,
+                                      model=model, device=dev)
+    supers = -(-pg.m // lattice_superblock(pg.n, 256, 512, 1024))
+    assert supers == 3
+    assert kernels.decode_rotate.launches == (supers if model == "add" else 0)
+    cpu, null_c = fastlmm.fastlmm_scan(pg, lrb, Y[:, 0], cov, block=512, model=model,
+                                       device="cpu")
+    assert null.lbd == null_c.lbd
+    np.testing.assert_array_equal(np.isnan(card.beta), np.isnan(cpu.beta))
+    assert _dlogp(card.pwald, cpu.pwald) <= 5e-3
+
+
+def test_sparse_scans_on_card_match_cpu(dev):
+    """The band-streamed sparse GRM, the device quadratic and -splmm /
+    -splmm-exact on the card against the CPU."""
+    from janusx_tpu_torch.models import splmm
+
+    pg, _, Y, cov = _scan_problem(3000, 300, 1)
+    Kc = splmm.build_sparse_grm(pg, cutoff=0.05, row_band=128, device="cpu")
+    Kd = splmm.build_sparse_grm(pg, cutoff=0.05, row_band=128, device=dev).toarray()
+    both = (Kd != 0) & (Kc.toarray() != 0)
+    assert abs(int((Kd != 0).sum()) - Kc.nnz) <= 4  # entries at the cutoff may flip
+    np.testing.assert_allclose(Kd[both], Kc.toarray()[both], rtol=1e-5, atol=1e-7)
+    null = splmm.fit_sparse_null(Kc, Y[:, 0] - Y[:, 0].mean(), pg.n - 1)
+    bs = null.factor.bs
+    G = pg.centered()[:64].astype(np.float32)
+    got = bs.device_quad_fn(0.7, dev)(torch.as_tensor(G, device=dev)).cpu().numpy()
+    np.testing.assert_allclose(got, bs.quad(0.7, G.T.astype(np.float64)), rtol=2e-4)
+    for scan in (splmm.splmm_grammar_scan, splmm.splmm_exact_scan):
+        card, info = scan(pg, Kc, Y[:, 0], cov, block=512, superblock=1024, device=dev)
+        cpu, info_c = scan(pg, Kc, Y[:, 0], cov, block=512, device="cpu")
+        assert info["lambda_null"] == info_c["lambda_null"]
+        np.testing.assert_array_equal(np.isnan(card.beta), np.isnan(cpu.beta))
+        assert _dlogp(card.pwald, cpu.pwald) <= 5e-3
+
+
+def test_algwas_on_card_matches_cpu(dev):
+    from janusx_tpu_torch.models import algwas
+
+    pg, _, Y, cov = _scan_problem(600, 400, 1)
+    card = algwas.algwas_scan(pg, Y[:, 0], cov, device=dev)
+    cpu = algwas.algwas_scan(pg, Y[:, 0], cov, device="cpu")
+    np.testing.assert_array_equal(card.selected, cpu.selected)
+    np.testing.assert_allclose(card.ebic_path, cpu.ebic_path, rtol=1e-4)
+    assert _dlogp(card.result.pwald, cpu.result.pwald) <= 5e-3

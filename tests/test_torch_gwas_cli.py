@@ -1,11 +1,13 @@
-"""End-to-end parity of ``jx gwas -lmm``: the port's CLI
+"""End-to-end parity of ``jx gwas``: the port's CLI
 (janusx_tpu_torch.cli.main) against the reference's (janusx_tpu.cli.main)
 on one tiny PLINK fileset, with a phenotype that leaves some samples
-missing so the per-trait subset/re-QC path runs.
+missing so the per-trait subset/re-QC path runs: ``-lmm`` with and
+without its LMM->LM switch, and each of the sparse, low-rank and ALGWAS
+routes.
 
-Bounds (tests/test_golden_mouse.py:57-68): the same header and SNP rows,
-max Δ(-log10 p) <= 0.05, the same top-5 SNPs, λ_null within 2e-3
-(relative).
+Bounds of ``-lmm`` (tests/test_golden_mouse.py:57-68): the same header
+and SNP rows, max Δ(-log10 p) <= 0.05, the same top-5 SNPs, λ_null within
+2e-3 (relative); each other route's bound is stated at its test.
 """
 
 import json
@@ -67,6 +69,20 @@ def _env(monkeypatch):
     monkeypatch.setenv("JX_TPU_HISTORY_DB", "0")  # reference run history off
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """ALGWAS's FISTA path is 9,600 iterations of small torch ops on the
+    CPU; with the suite's six workers sharing the cores, each op's
+    intra-op threads wait on one another (~100x slower than alone). One
+    thread per worker runs them as fast as they run alone."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_gwas_lmm_cli_matches_reference(tmp_path):
     from janusx_tpu.cli.main import main as j_main
     from janusx_tpu_torch.cli.main import main as t_main
@@ -118,11 +134,82 @@ def test_gwas_switch_to_lm_is_not_ported(tmp_path):
     np.testing.assert_allclose(p_port, p_ref, rtol=1e-4)  # the TSV's 5 digits
 
 
-@pytest.mark.parametrize("flag", [["-splmm"], ["-splmm-exact"], ["-lowrank"],
-                                  ["-algwas"], ["-spk", "grm.jxgrm"]])
-def test_gwas_unported_flags_raise(tmp_path, flag):
-    """The routes left unported raise, naming their ROADMAP item."""
+def _write_spk(d, n, seed=4):
+    """A precomputed sparse GRM over the panel's samples, written with its
+    .id sidecar in a shuffled sample order (the run aligns it by ID)."""
+    import scipy.sparse
+
+    from janusx_tpu.io.jxgrm import write_jxgrm
+    from test_sparse_path import _family_sparse_k
+
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(n)
+    K = _family_sparse_k(n, rng)
+    path = str(d / "kin.jxgrm")
+    write_jxgrm(path, scipy.sparse.csc_matrix(K.toarray()[np.ix_(order, order)]))
+    with open(path + ".id", "wt") as fh:
+        fh.write("".join(f"s{j}\n" for j in order))
+    return path
+
+
+# route flags -> (TSV tag, max Δ(-log10 p)): 5e-3 for the scans whose
+# per-SNP statistics are f32 grams at a host-f64 null (tests/test_scans.py:
+# 155, tests/test_torch_sparse.py, test_torch_lowrank.py,
+# test_torch_algwas.py); the TSV's own rounding is ~2e-5
+_ROUTES = {"splmm": (["-splmm"], "SparseLMM"),
+           "splmm-exact": (["-splmm-exact", "0.1"], "SparseLMM2"),
+           "lowrank": (["-lowrank", "100"], "FaSTLMM"),
+           # full-set QC stats for the 133 phenotyped samples: the add rows
+           # are centered by the subset's observed-code mean all the same
+           # (under -global this panel's switch test picks LM)
+           "lowrank-global": (["-lowrank", "100", "-global", "-force-model"], "FaSTLMM"),
+           "algwas": (["-algwas"], "ALGWAS"),
+           "spk-file": (["-splmm", "-spk", None], "SparseLMM")}
+
+
+@pytest.mark.parametrize("route", list(_ROUTES))
+def test_gwas_route_cli_matches_reference(tmp_path, route):
+    """-splmm, -splmm-exact, -lowrank (with its LMM->LM switch test, and
+    under -global), -algwas and a precomputed -spk file through both CLIs:
+    the same TSV
+    header and SNP rows, max Δ(-log10 p) <= 5e-3, the same top 5, λ_null
+    within 1e-6 relative (host f64 null fits on both sides)."""
+    from janusx_tpu.cli.main import main as j_main
     from janusx_tpu_torch.cli.main import main as t_main
 
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP queue 1, item"):
-        t_main(_gwas_args("x", "x.pheno", tmp_path / "out", *flag))
+    flag, tag = _ROUTES[route]
+    (tmp_path / "ref").mkdir()
+    prefix, pheno = _write_panel(tmp_path / "ref")
+    shutil.copytree(tmp_path / "ref", tmp_path / "port")
+    tprefix = str(tmp_path / "port" / "panel")
+    if route == "spk-file":
+        flag = flag[:-1] + [_write_spk(tmp_path, 150)]
+    args = lambda pre, out: ["gwas", "-bfile", pre, "-p", pre + ".pheno", *flag, "-o",
+                             str(out)]
+    assert j_main(args(prefix, tmp_path / "out_ref")) == 0
+    assert t_main(args(tprefix, tmp_path / "out_port")) == 0
+    runs = []
+    for out in ("out_ref", "out_port"):
+        with open(tmp_path / out / f"jx.test0.{tag}.assoc.tsv") as fh:
+            header = fh.readline()
+            rows = [ln.rstrip("\n").split("\t") for ln in fh]
+        with open(tmp_path / out / "jx.gwas.summary.json") as fh:
+            runs.append((header, rows, json.load(fh)["runs"][0]))
+    (h_ref, rows_ref, run_ref), (h_port, rows_port, run_port) = runs
+    assert h_port == h_ref
+    assert len(rows_port) == len(rows_ref) > 1500
+    assert [r[:7] for r in rows_port] == [r[:7] for r in rows_ref]
+    assert (run_port["model"], run_port["requested"]) == (run_ref["model"],
+                                                          run_ref["requested"])
+    if route.startswith("lowrank"):
+        assert run_port["model"] == "lowrank"  # the switch test kept the mixed model
+    col = h_ref.rstrip("\n").split("\t").index("pwald")
+    p_ref = np.array([float(r[col]) for r in rows_ref])
+    p_port = np.array([float(r[col]) for r in rows_port])
+    assert np.all(np.isfinite(p_port) & (p_port > 0))
+    assert np.max(np.abs(np.log10(p_port) - np.log10(p_ref))) <= 5e-3
+    assert set(np.argsort(p_port)[:5]) == set(np.argsort(p_ref)[:5])
+    if run_ref["lambda_null"] is None:
+        assert run_port["lambda_null"] is None
+    else:
+        assert run_port["lambda_null"] == pytest.approx(run_ref["lambda_null"], rel=1e-6)

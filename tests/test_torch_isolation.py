@@ -3,7 +3,9 @@
 - The port never imports JAX: a fresh interpreter runs the whole CPU
   slice (write a toy PLINK panel, then ``jx gwas`` through the port's CLI
   with every ported model, ``-trait-level`` over three traits of which
-  one switches to LM, ``-bimrange``, ``-global``, ``-scan-method brent``)
+  one switches to LM, ``-bimrange``, ``-global``, ``-scan-method brent``,
+  the sparse routes on a band-streamed and on a written ``-spk`` GRM,
+  ``-lowrank`` in two genetic models with ``-lowrank-prune``, ``-algwas``)
   and must end with no ``jax`` module loaded.
 - The host modules the port carries as copies (janusx_tpu/__init__.py
   imports jax, so they cannot be shared by import) stay identical to their
@@ -27,7 +29,8 @@ ROOT = Path(__file__).resolve().parent.parent
 COPIES = (
     ["io/__init__.py"]
     + [f"io/{m}.py" for m in ("gdata", "bitcodec", "packed", "plink", "pheno", "vcf",
-                              "hapmap", "txt", "gfreader", "windowed", "native")]
+                              "hapmap", "txt", "gfreader", "windowed", "native",
+                              "jxgrm")]
     + [f"utils/{m}.py" for m in ("nativelib", "tsv", "prefetch", "progress", "cache")]
     + ["models/scan_common.py", "models/farmcpu.py", "cli/common.py", "utils/history.py"]
 )
@@ -95,6 +98,19 @@ assert main(base + ["-lm2", "-fvlmm2", "-farmcpu", "-c", d + "/toy.cov", "-n", "
                     "-o", d + "/out2"]) == 0
 assert main(base + ["-lmm", "-scan-method", "brent", "-frgwas", "-global",
                     "-o", d + "/out3"]) == 0
+assert main(base + ["-splmm", "-splmm-exact", "0.1", "-lowrank", "40", "-n", "0",
+                    "-o", d + "/out4"]) == 0
+for f in ("SparseLMM", "SparseLMM2", "FaSTLMM"):
+    assert os.path.exists(f"{d}/out4/jx.test0.{f}.assoc.tsv"), f
+# ALGWAS on a 31-SNP window: on 60 samples the lasso path over all 400
+# SNPs reaches more markers than there are samples
+assert main(base + ["-algwas", "-n", "0", "-bimrange", "1:0.0001-0.00013",
+                    "-o", d + "/out6"]) == 0
+assert os.path.exists(d + "/out6/jx.test0.ALGWAS.assoc.tsv")
+spk = [f for f in os.listdir(d) if f.endswith(".jxgrm")]
+assert len(spk) == 2, spk  # the band-streamed GRMs' caches, one per cutoff
+assert main(base + ["-splmm", "-spk", d + "/" + spk[0], "-lowrank", "40", "-gmodel",
+                    "dom", "-lowrank-prune", "-n", "1", "-o", d + "/out5"]) == 0
 print("JAX_LOADED", "jax" in sys.modules)
 """
 
