@@ -72,7 +72,24 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
 10. each phase's wall, a JSON line with each kernel's numbers (time,
     plain time, bound and what bounds it, library time; K1's "high" mode
     and its -lowrank shape, K2's "default" mode and its trait axis in both
-    modes beside them; the launches of each path), then the result line.
+    modes beside them; the launches of each path), then the result line;
+11. (run before phase 10's lines) genomic selection on phase 5's panel,
+    whose 530 unphenotyped samples are the test set: ``jx gs -BLUP -rrBLUP
+    -GBLUPad -cv 5 -effect -save-model`` on test0 (the routes GBLUP(add),
+    rrBLUP, GBLUP(ad); 530 finite GEBV rows; an HE pre-fit; CV pearson >=
+    0.4; the test GEBVs correlate with the simulated genetic values at
+    least 0.5 and at least as well as the mean phenotype of the phenotyped
+    sibs), ``-BLUP --rrblup-solver pcg -select max`` on phase 7's five
+    traits (every trait on rrBLUP(PCG) at its own HE pre-fit λ, or at the
+    fixed λ = 1 where the pre-fit hit σg = 0; the TOP files; weights
+    summing to 1), ``-hash 2048 -BLUP`` on test0 (every QC'd SNP hashed),
+    ``jx gspredict`` with the saved rrBLUP model (the test samples within
+    1e-3 sd(GEBV) of the GEBV TSV's rrBLUP column), and the first 16,384
+    SNPs through the same GS run on the card and on the CPU (the same
+    routes, λ rel 1e-4, GEBVs rtol 1e-4 / atol 1e-6, CV pearson and HE h2
+    within 1e-4); prints each CLI's wall, the run's and each method's
+    seconds, and CUDA-event times of one HE stream pass, one marker-effect
+    pass and one PCG solve at the run's shapes; neither kernel launches.
 """
 
 from __future__ import annotations
@@ -452,7 +469,8 @@ def write_panel(d: str, m: int, seed: int = 20261016):
 
     Beside the trait test0 it draws, from its own generator, three more
     traits for the trait-level phenotype (write_traits), each with a 40 %
-    polygenic background."""
+    polygenic background. Last it returns each sample's simulated genetic
+    value of test0 (g_bg + g_qtl), which genomic selection predicts."""
     from janusx_tpu_torch.io import bitcodec
     from janusx_tpu_torch.io.gdata import SiteInfo
     from janusx_tpu_torch.io.plink import write_plink
@@ -513,7 +531,7 @@ def write_panel(d: str, m: int, seed: int = 20261016):
             fh.write(f"ind{j}\t{y[j]:.6f}\n" if is_phen[j] else f"ind{j}\tNA\n")
     Y = np.column_stack([y, 10.0 + g_more + more.normal(0.0, np.sqrt(0.6), (n, 3))])
     Y[~is_phen] = np.nan
-    return prefix, pheno, {f"snp{i}" for i in qtl}, kept, Y
+    return prefix, pheno, {f"snp{i}" for i in qtl}, kept, Y, g_bg + g_qtl
 
 
 def read_tsv(path: str):
@@ -524,8 +542,8 @@ def read_tsv(path: str):
 
 
 def run_cli(argv, phase: str):
-    """``jx gwas`` through the port's CLI with every launch count set to 0
-    just before: returns (what it printed, wall seconds, launches)."""
+    """A ``jx`` module through the port's CLI with every launch count set
+    to 0 just before: returns (what it printed, wall seconds, launches)."""
     from janusx_tpu_torch.cli.main import main as cli_main
     from janusx_tpu_torch.ops import kernels
 
@@ -539,7 +557,7 @@ def run_cli(argv, phase: str):
                 "grid_neg_reml_lattice": kernels.grid_neg_reml_lattice.launches}
     printed = buf.getvalue().strip()
     say(f"{phase} cli: rc={rc} wall={wall:.2f} s :: " + printed.replace("\n", " | "))
-    require(rc == 0, f"{phase}: gwas CLI returned {rc}")
+    require(rc == 0, f"{phase}: {argv[0]} CLI returned {rc}")
     return printed, wall, launches
 
 
@@ -579,15 +597,18 @@ def read_head(path: str, k: int):
 
 def run_main_path(d: str, m: int):
     """Panel -> CLI -> checks. Returns (prefix, pheno, rows, summary,
-    launches, qtl_ids, Y)."""
+    launches, qtl_ids, Y, the genetic values)."""
     t0 = time.monotonic()
-    prefix, pheno, qtl_ids, kept, Y = write_panel(d, m)
+    prefix, pheno, qtl_ids, kept, Y, gv = write_panel(d, m)
     say(f"phase 5 panel: {N_SAMPLES} samples ({N_PHENO} phenotyped) x {m} SNPs "
         f"written in {time.monotonic() - t0:.2f} s; {kept} SNPs pass QC")
     out = os.path.join(d, "out")
     printed, _, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lmm",
                                     "-force-model", "-n", "0", "-o", out], "phase 5")
-    require("lambda_null=" in printed, "λ_null was not printed")
+    # the reference's run line: trait, model, n=, m=, seconds, TSV
+    fields = printed.splitlines()[-1].split("\t")
+    require(len(fields) == 6 and fields[2].startswith("n=") and fields[4].endswith("s"),
+            f"run line {fields}")
     require(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     header, rows = read_tsv(os.path.join(out, "jx.test0.LMM.assoc.tsv"))
     require(header == HEADER, f"TSV header {header!r}")
@@ -598,12 +619,14 @@ def run_main_path(d: str, m: int):
     require(sig >= N_QTL // 2, f"only {sig}/{N_QTL} planted QTLs reach p < 5e-8")
     with open(os.path.join(out, "jx.gwas.summary.json")) as fh:
         summary = json.load(fh)
+    lam = summary["runs"][0]["lambda_null"]
+    require(lam is not None and np.isfinite(lam) and lam > 0, f"λ_null {lam}")
     st = dict(summary["stages"], **summary["runs"][0]["stages"])
     scan = st["scan"]
     say("phase 5 stages (s): " + ", ".join(f"{k}={v:.3f}" for k, v in st.items())
         + f"; scan {len(rows) / scan:.0f} SNPs/s; {sig}/{N_QTL} QTLs at p < 5e-8; "
         f"launches {launches}")
-    return prefix, pheno, rows, summary, launches, qtl_ids, Y
+    return prefix, pheno, rows, summary, launches, qtl_ids, Y, gv
 
 
 def cross_check(prefix: str, pheno: str, rows, summary) -> dict:
@@ -912,6 +935,257 @@ def run_lowrank_sparse(d: str, prefix: str, pheno: str, rows5, qtl_ids, cpu) -> 
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+# in the order jx gs runs them (cli/gs.py _METHOD_FLAGS)
+GS_ROUTES = {"BLUP": "GBLUP(add)", "GBLUPad": "GBLUP(ad)", "rrBLUP": "rrBLUP"}
+
+
+def read_gs(out: str, trait: str | None = None):
+    """A ``jx gs`` run's summary and, for ``trait``, its GEBV TSV as
+    (sample ids, method columns, (samples, methods) values)."""
+    with open(os.path.join(out, "jxgs.gs.summary.json")) as fh:
+        summary = json.load(fh)
+    if trait is None:
+        return summary, None
+    header, rows = read_tsv(os.path.join(out, f"jxgs.{trait}.gebv.tsv"))
+    return summary, ([r[0] for r in rows], header.split("\t")[1:],
+                     np.array([[float(v) for v in r[1:]] for r in rows]))
+
+
+def gs_seconds(summary) -> str:
+    """The run's total seconds, then each method's fit and CV seconds."""
+    return "; ".join([f"total {summary['total_seconds']:.3f}"] + [
+        f"{t} {mm} fit {info['fit_seconds']:.3f} cv {info['cv_seconds']:.3f}"
+        for t, per in summary["traits"].items() for mm, info in per.items()])
+
+
+def gs_device_times(pg, K, keep, y, lbd: float, dev) -> str:
+    """CUDA-event times of the GS device steps at the run's shapes: one HE
+    stream pass (every QC'd SNP, 4,096-SNP blocks, 16 probes and the
+    residual), one marker-effect pass (2,048-SNP blocks) and one PCG solve
+    of (K_tt + λI) at the default tol and iteration cap."""
+    import torch
+
+    from janusx_tpu_torch import config
+    from janusx_tpu_torch.gs.blup import _marker_effects_resident
+    from janusx_tpu_torch.models.grm import _snp_scales
+    from janusx_tpu_torch.models.he import _he_stream_pass
+    from janusx_tpu_torch.ops.cg import cg_solve
+    from janusx_tpu_torch.utils import devcache
+
+    mean, inv_sd, _ = _snp_scales(pg, 1)
+    # each step's bound: its products (2 operations per multiply-add) at
+    # the f32 peak outside the tensor cores (TF32 is off), or each input
+    # read once and each output written once, whichever is longer
+    f32 = lambda flops, nbytes: "bound {:.4f} ms ({})".format(*bound(flops, nbytes, F32_PEAK))
+    n = pg.n_samples
+    out = []
+    for blk in (4096, 2048):
+        shape = (-(-pg.m // blk), blk)
+        pk = devcache.device_packed_blocks(pg, shape, dev, lane_align=4)
+        mn = devcache.to_device_blocks(mean, shape, 0.0, torch.float32, dev)
+        n_pad = pk.shape[-1] * 4
+        rows_in = pk.numel() + 4 * mn.numel()  # packed bytes and one f32 per SNP
+        if blk == 4096:
+            iv = devcache.to_device_blocks(inv_sd, shape, 0.0, torch.float32, dev)
+            V = torch.randn((n_pad, 17), device=dev)
+            ms = cuda_ms(lambda: _he_stream_pass(pk, mn, iv, V), iters=5, warmup=1)
+            # C V, Cᵀ(C V) and the squared column sums
+            b = f32(pg.m * n * (2 * 17 * 2 + 2),
+                    rows_in + 4 * iv.numel() + 4 * V.numel() + 8 * n_pad * 18)
+            out.append(f"HE stream pass {ms:.3f} ms, {b} ({shape[0]} blocks x {blk} SNPs, "
+                       f"{n_pad} sample lanes, 17 columns)")
+        else:
+            a = torch.randn(n_pad, device=dev)
+            ms = cuda_ms(lambda: _marker_effects_resident(pk, mn, a), iters=5, warmup=1)
+            b = f32(2.0 * pg.m * n, rows_in + 4 * n_pad + 4 * pg.m)
+            out.append(f"marker-effect pass {ms:.3f} ms, {b} ({shape[0]} blocks x {blk} SNPs)")
+    Ktt = torch.as_tensor(K[np.ix_(keep, keep)], dtype=torch.float32, device=dev)
+    r = torch.as_tensor(y - y.mean(), dtype=torch.float32, device=dev)
+    diag = torch.diagonal(Ktt) + lbd
+    solve = lambda: cg_solve(lambda v: Ktt @ v + lbd * v, r, diag_precond=diag,
+                             tol=config.knob("JX_TPU_CG_TOL"),
+                             max_iter=config.knob("JX_TPU_CG_MAX_ITER"))
+    res = solve()
+    ms = cuda_ms(solve, iters=3, warmup=1)
+    n_t, its = len(keep), int(res.iters)
+    b = f32(2.0 * n_t * n_t * (its + 1), 4 * (n_t * n_t + 3 * n_t))
+    out.append(f"PCG solve {ms:.3f} ms, {b} (n_t={n_t}, λ={lbd:.4g}, {its} "
+               f"iterations, rel res {float(res.rel_res):.3g})")
+    return "; ".join(out)
+
+
+def run_gs_phase(d: str, prefix: str, pheno: str, gv, cpu, dev, smi: str) -> dict:
+    """Phase 11: ``jx gs`` and ``jx gspredict`` on phase 5's panel, then
+    the GS run on the first CROSS_SNPS SNPs on the card and on the CPU.
+    Returns the kernel launches of the phase (both 0: GS reaches no
+    kernel)."""
+    from janusx_tpu_torch.gs.workflow import GsConfig, run_gs
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+    from janusx_tpu_torch.io.packed import QcParams
+    from janusx_tpu_torch.io.plink import write_plink
+    from janusx_tpu_torch.ops import kernels
+    from janusx_tpu_torch.utils.cache import load_or_build_grm
+
+    t0 = time.monotonic()
+    total = {"decode_rotate": 0, "grid_neg_reml_lattice": 0}
+
+    def cli(argv, what):
+        _, wall, launches = run_cli(argv, f"phase 11 {what}")
+        for k, v in launches.items():
+            total[k] += v
+        return wall
+
+    # 1. test0: three routes, CV, exports
+    out1 = os.path.join(d, "gs1")
+    wall1 = cli(["gs", "-bfile", prefix, "-p", pheno, *(f"-{m}" for m in GS_ROUTES), "-cv",
+                 "5", "-effect", "-save-model", "-o", out1], "test0")
+    s1, (ids, cols, G) = read_gs(out1, "test0")
+    routes = {mm: info["route"] for mm, info in s1["traits"]["test0"].items()}
+    require(routes == GS_ROUTES, f"phase 11 routes {routes}")
+    n_test = N_SAMPLES - N_PHENO
+    require(cols == list(GS_ROUTES) and G.shape == (n_test, 3) and bool(np.isfinite(G).all()),
+            f"phase 11 GEBV TSV: columns {cols}, shape {G.shape}")
+    require("test0" in s1.get("he_prefit", {}), "phase 11: no HE pre-fit for test0")
+    # The founders are unrelated and their SNPs independent, so all GS can
+    # learn of a sample comes through its sibs. At h2 = 0.8 a CV fold keeps
+    # Bin(4, 0.58) phenotyped sibs of a sample in training, and the best
+    # predictor of its phenotype from them reaches r ~ 0.48; hence 0.4 here.
+    # The test samples keep Bin(4, 0.73) and are held to the genetic value:
+    # at least 0.5 and at least the pedigree-only predictor, the mean
+    # phenotype of their phenotyped sibs.
+    cv = {mm: s1["traits"]["test0"][mm]["cv"]["pearson"] for mm in GS_ROUTES}
+    require(cv["BLUP"] >= 0.4, f"phase 11 BLUP CV pearson {cv['BLUP']:.4f} < 0.4")
+    test_idx = np.array([int(s[3:]) for s in ids])  # the samples are ind<j>
+    r_true = {mm: float(np.corrcoef(G[:, i], gv[test_idx])[0, 1]) for i, mm in enumerate(cols)}
+    y_full = np.full(N_SAMPLES, np.nan)
+    y_full[cpu["keep"]] = cpu["y"]
+    fam = np.arange(N_SAMPLES) // FAMILY
+    sibs = np.array([np.nanmean(y_full[fam == fam[j]]) for j in test_idx])
+    has = np.isfinite(sibs)
+    r_sib = float(np.corrcoef(sibs[has], gv[test_idx][has])[0, 1])
+    require(min(r_true.values()) >= max(0.5, r_sib),
+            f"phase 11 test GEBVs vs simulated genetic values: {r_true} (sib means {r_sib:.4f})")
+    he1 = s1["he_prefit"]["test0"]
+    say(f"phase 11 test0: routes {routes}; {len(ids)} test GEBVs, CV pearson "
+        + ", ".join(f"{mm} {v:.4f}" for mm, v in cv.items())
+        + "; corr(test GEBV, genetic value) "
+        + ", ".join(f"{mm} {v:.4f}" for mm, v in r_true.items())
+        + f" (sib means {r_sib:.4f}, {int(has.sum())} samples); HE h2 {he1['h2']} ({he1['boundary']}); REML λ {s1['traits']['test0']['BLUP']['lambda_']:.5g}"
+        f"; seconds: {gs_seconds(s1)}; cli {wall1:.2f} s")
+
+    # 2. the five traits of phase 7 on the PCG route with the TOP bundle
+    out2 = os.path.join(d, "gs2")
+    wall2 = cli(["gs", "-bfile", prefix, "-p", prefix + ".traits.pheno", "-BLUP",
+                 "--rrblup-solver", "pcg", "-select", "max", "-o", out2], "five traits")
+    s2, _ = read_gs(out2)
+    lams = {}
+    for t in TRAITS:
+        info, he = s2["traits"][t]["BLUP"], s2["he_prefit"][t]
+        require(info["route"] == "rrBLUP(PCG)", f"phase 11 {t} route {info['route']}")
+        # the workflow's rule (gs/workflow.py:395, :577-585): the pre-fit's
+        # λ = ve/vg, or the fixed λ = 1 where it hit σg = 0
+        own = he["vg"] > 1e-12
+        require(own or he["boundary"] == "sigma_g_zero", f"phase 11 {t}: HE pre-fit {he}")
+        require(own or t == TRAITS[-1], f"phase 11 polygenic trait {t} hit σg = 0: {he}")
+        want = he["ve"] / he["vg"] if own else 1.0
+        require(abs(info["lambda_pcg"] - want) <= 1e-12 * want,
+                f"phase 11 {t}: λ_pcg {info['lambda_pcg']} vs {want}")
+        lams[t] = f"{info['lambda_pcg']:.4g} ({'HE' if own else 'fixed'}, h2 {he['h2']}, " \
+                  f"CV pearson {info['cv']['pearson']:.4f})"
+    for f in ("weights.tsv", "rank.tsv", "jxmodel.npz"):
+        require(os.path.exists(os.path.join(out2, f"jxgs.gs.TOP.{f}")), f"no TOP {f}")
+    w = s2["top"]["weights"]
+    require(abs(sum(w) - 1.0) <= 1e-9, f"phase 11 TOP weights {w}")
+    say(f"phase 11 five traits (rrBLUP(PCG), -select max): λ " + ", ".join(
+        f"{t} {v}" for t, v in lams.items()) + f"; TOP weights {np.round(w, 4).tolist()} "
+        f"({s2['top']['n_iter']} Newton iterations, converged {s2['top']['converged']}); "
+        f"seconds: {gs_seconds(s2)}; cli {wall2:.2f} s")
+
+    # 3. the signed-hash sketch
+    out3 = os.path.join(d, "gs3")
+    wall3 = cli(["gs", "-bfile", prefix, "-p", pheno, "-hash", "2048", "-BLUP", "-o", out3],
+                "hash")
+    s3, _ = read_gs(out3, "test0")
+    m_qc = cpu["full"].m
+    require(s3["hash"]["kept_snps"] == m_qc == s3["m_snps"],
+            f"phase 11 hash kept {s3['hash']['kept_snps']} of {m_qc} QC'd SNPs")
+    say(f"phase 11 -hash 2048: {m_qc} SNPs hashed (scale {s3['hash']['scale']:.5g}), route "
+        f"{s3['traits']['test0']['BLUP']['route']}, CV pearson "
+        f"{s3['traits']['test0']['BLUP']['cv']['pearson']:.4f}; seconds: {gs_seconds(s3)}; "
+        f"cli {wall3:.2f} s")
+
+    # 4. gspredict with the saved rrBLUP model, against its GEBV column
+    out4 = os.path.join(d, "gp")
+    model = os.path.join(out1, "jxgs.test0.rrBLUP.jxmodel.npz")
+    wall4 = cli(["gspredict", "-model", model, "-bfile", prefix, "-o", out4], "gspredict")
+    _, rows = read_tsv(os.path.join(out4, "gspred.gebv.tsv"))
+    pred = {r[0]: float(r[1]) for r in rows}
+    rr = G[:, cols.index("rrBLUP")]
+    dmax = float(np.max(np.abs(np.array([pred[s] for s in ids]) - rr)))
+    bound = 1e-3 * float(np.std(rr))
+    require(dmax <= bound, f"phase 11 gspredict vs the GEBV TSV: {dmax:.3g} > {bound:.3g}")
+    say(f"phase 11 gspredict: {len(pred)} samples; the {len(ids)} test samples within "
+        f"{dmax:.3g} of the GEBV TSV's rrBLUP column (bound 1e-3 sd = {bound:.3g}; both "
+        f"printed to 4 decimals); cli {wall4:.2f} s")
+
+    # 5. the first CROSS_SNPS SNPs through the same GS run on the card and the CPU
+    raw = load_raw_packed(prefix)
+    sub = os.path.join(d, "cross")
+    write_plink(sub, raw.packed[:CROSS_SNPS], raw.n_samples,
+                raw.sites.take(np.arange(CROSS_SNPS)), raw.samples)
+    res, secs = {}, {}
+    platform = os.environ["JX_TPU_PLATFORM"]
+    for plat in ("cuda", "cpu"):
+        os.environ["JX_TPU_PLATFORM"] = plat
+        kernels.reset_launches()
+        t1 = time.monotonic()
+        res[plat] = run_gs(GsConfig(
+            genotype=sub, phenotype=pheno, out_prefix=os.path.join(d, f"gs_{plat}", "jxgs"),
+            methods=tuple(GS_ROUTES), cv=5, export_effects=True, save_models=True))
+        secs[plat] = time.monotonic() - t1
+        total["decode_rotate"] += kernels.decode_rotate.launches
+        total["grid_neg_reml_lattice"] += kernels.grid_neg_reml_lattice.launches
+    os.environ["JX_TPU_PLATFORM"] = platform
+    (rc, sc), (rp, sp) = res["cuda"], res["cpu"]
+    worst = {"lambda": 0.0, "gebv": 0.0, "pearson": 0.0, "h2": 0.0}
+    for mm in GS_ROUTES:
+        a, b = rc["test0"][mm], rp["test0"][mm]
+        require(a.route == b.route, f"phase 11 cross {mm}: route {a.route} vs {b.route}")
+        ia, ib = a.model_info, b.model_info
+        # λ of the kernel fits; GBLUP(ad)'s σe²/σa² from its AI-REML
+        la = ia["lambda_"] if "lambda_" in ia else ia["sigma2"]["residual"] / ia["sigma2"]["add"]
+        lb = ib["lambda_"] if "lambda_" in ib else ib["sigma2"]["residual"] / ib["sigma2"]["add"]
+        worst["lambda"] = max(worst["lambda"], abs(la - lb) / abs(lb))
+        err = np.abs(a.test_pred - b.test_pred)
+        require(bool(np.all(err <= 1e-6 + 1e-4 * np.abs(b.test_pred))),
+                f"phase 11 cross {mm}: GEBVs outside rtol 1e-4 / atol 1e-6 "
+                f"(max |err| {float(err.max()):.3g})")
+        worst["gebv"] = max(worst["gebv"], float((err / np.abs(b.test_pred)).max()))
+        worst["pearson"] = max(worst["pearson"],
+                               abs(a.cv_mean["pearson"] - b.cv_mean["pearson"]))
+    h2 = lambda s: s["he_prefit"]["test0"]["vg"] / (s["he_prefit"]["test0"]["vg"]
+                                                     + s["he_prefit"]["test0"]["ve"])
+    worst["h2"] = abs(h2(sc) - h2(sp))
+    require(worst["lambda"] <= 1e-4 and worst["pearson"] <= 1e-4 and worst["h2"] <= 1e-4,
+            f"phase 11 cross: card vs cpu {worst}")
+    say(f"phase 11 cross {CROSS_SNPS} SNPs, card vs cpu: the same routes; max λ rel "
+        f"{worst['lambda']:.3g}, GEBV rel {worst['gebv']:.3g}, CV pearson "
+        f"{worst['pearson']:.3g}, HE h2 {worst['h2']:.3g}; run_gs card {secs['cuda']:.2f} s "
+        f"({gs_seconds(sc)}), cpu {secs['cpu']:.2f} s ({gs_seconds(sp)})")
+    require(total == {"decode_rotate": 0, "grid_neg_reml_lattice": 0},
+            f"phase 11: a kernel launched on the GS path: {total}")
+
+    # device times of the GS steps at the run's shapes
+    qc = QcParams()
+    K = load_or_build_grm(prefix, cpu["full"], qc.maf, qc.geno)
+    lam0 = s2["traits"]["test0"]["BLUP"]["lambda_pcg"]
+    times = gs_device_times(cpu["full"], K, cpu["keep"], cpu["y"], lam0, dev)
+    say(f"phase 11 device times ({smi}): {times}")
+    say(f"phase 11 done in {time.monotonic() - t0:.2f} s")
+    return total
+
+
 def check_kernels(dev) -> dict:
     """Phases 2-4: build, then each kernel against its plain version."""
     from janusx_tpu_torch import config
@@ -968,10 +1242,14 @@ def check_kernels(dev) -> dict:
                           for T in (1, 4) for m in kernels.GRID_PRECS})
 
 
-def bound(flops: float, nbytes: float) -> tuple:
-    """(milliseconds, "operations" or "bytes"): the larger of flops at the
-    H100's bf16 tensor-core peak and bytes at its memory rate."""
-    ops_ms, mem_ms = flops / 989e12 * 1e3, nbytes / 3.35e12 * 1e3
+F32_PEAK = 67e12  # the H100's f32 rate outside the tensor cores
+
+
+def bound(flops: float, nbytes: float, peak: float = 989e12) -> tuple:
+    """(milliseconds, "operations" or "bytes"): the larger of flops at
+    ``peak`` (by default the H100's bf16 tensor-core rate) and bytes at its
+    memory rate."""
+    ops_ms, mem_ms = flops / peak * 1e3, nbytes / 3.35e12 * 1e3
     return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
 
@@ -1036,7 +1314,7 @@ def main() -> int:
     walls = {"kernels": time.monotonic() - t0}
     with tempfile.TemporaryDirectory(prefix="jx_smoke_") as d:
         t0 = time.monotonic()
-        prefix, pheno, rows, summary, launches, qtl_ids, Y = run_main_path(d, M_SNPS)
+        prefix, pheno, rows, summary, launches, qtl_ids, Y, gv = run_main_path(d, M_SNPS)
         cpu = cross_check(prefix, pheno, rows, summary)
         rescan_default(rows, cpu, dev)
         walls["lmm"] = time.monotonic() - t0
@@ -1050,6 +1328,9 @@ def main() -> int:
         t0 = time.monotonic()
         paths["lowrank"] = run_lowrank_sparse(d, prefix, pheno, rows, qtl_ids, cpu)
         walls["lowrank_sparse"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        paths["gs"] = run_gs_phase(d, prefix, pheno, gv, cpu, dev, smi)
+        walls["gs"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]

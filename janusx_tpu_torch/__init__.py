@@ -3,8 +3,11 @@
 A second package beside the JAX reference: the same CLI surface, QC rules,
 statistics and TSV output, with each Pallas kernel on the ported path
 rewritten as a hand-written CUDA C++ kernel for sm_90a (csrc/). It imports
-torch, numpy and scipy, never jax. Ported so far: ``jx gwas -lmm`` (grid
-method, single trait); see ROADMAP.md for what remains.
+torch, numpy and scipy, never jax. Ported so far: every ``jx gwas`` route
+but the multi-device ``mesh``, and ``jx gs`` (BLUP, GBLUP, rrBLUP exact and
+PCG, GBLUPd/ad, the HE pre-fit, ``-hash``, the TOP bundle, effect and model
+export; not the Bayes methods) with ``jx gspredict``. ROADMAP.md lists what
+remains.
 """
 
 __version__ = "0.1.0"

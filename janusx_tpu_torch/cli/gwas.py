@@ -190,10 +190,10 @@ def main(argv=None) -> int:
         qtn_genotype=(args.qtn_vcf or args.qtn_hmp or args.qtn_bfile
                       or args.qtn_file),
     )
-    for r in run_gwas(cfg):
-        lam = "-" if r.lambda_null is None else f"{r.lambda_null:.6g}"
+    runs = run_gwas(cfg)
+    for r in runs:
         print(
             f"{r.trait}\t{r.model}\tn={r.n_samples}\tm={r.n_snps}\t"
-            f"lambda_null={lam}\t{r.seconds:.2f}s\t{r.tsv_path or '-'}"
+            f"{r.seconds:.2f}s\t{r.tsv_path or '-'}"
         )
     return 0

@@ -10,6 +10,8 @@ from janusx_tpu_torch import __version__
 
 _MODULES: dict[str, tuple[str, str]] = {
     "gwas": ("janusx_tpu_torch.cli.gwas", "GWAS scans (every jx gwas route but the multi-device mesh)"),
+    "gs": ("janusx_tpu_torch.cli.gs", "Genomic selection: BLUP/GBLUP/rrBLUP (Bayes not yet)"),
+    "gspredict": ("janusx_tpu_torch.cli.gspredict", "Predict gebv from a saved .jxmodel.npz"),
 }
 
 

@@ -77,6 +77,14 @@ KNOBS: dict = {
     "JX_TPU_GRM_FLUSH": (int, 16, "SNP blocks accumulated in f32 before each f64 flush in the GRM build"),
     "JX_TPU_GRID_MXU_PREC": (str, "highest", "lambda-lattice gram precision: highest (f32-accurate: exact bf16 pieces on the tensor cores, 6 passes) | default (the reference's default: products and weights rounded to bf16, 1 pass; selection-grade)"),
     "JX_TPU_ROTATE_PREC": (str, "highest", "decode+rotate precision: highest (f32-accurate: exact bf16 pieces on the tensor cores, 6 passes) | high (the reference's bf16x3, 3 passes; up to ~3e-5 matrix-relative from highest on an eigenbasis)"),
+    "JX_TPU_GBLUP_MAX_N": (int, 15_000, "BLUP auto-dispatch: max train n for the GBLUP kernel route"),
+    "JX_TPU_GS_EIGH32": (bool, False, "GS fold eighs in f32 (ssyevd, ~2x faster CV; lambda precision ~1e-5 in log10)"),
+    "JX_TPU_RRBLUP_EXACT_MAX_M": (int, 15_000, "BLUP auto-dispatch: max markers for exact rrBLUP (else PCG)"),
+    "JX_TPU_HE_PROBES": (int, 16, "Hutchinson probes in the streamed HE variance-component pre-fit"),
+    "JX_TPU_HASH_DIM": (int, 2048, "signed-hash sketch buckets (-hash default dim)"),
+    "JX_TPU_HASH_SEED": (int, 520, "signed-hash seed (reference default 520)"),
+    "JX_TPU_CG_TOL": (float, 1e-8, "Jacobi-PCG convergence tolerance"),
+    "JX_TPU_CG_MAX_ITER": (int, 1000, "Jacobi-PCG iteration cap"),
     "JX_TPU_SPARSE_CUTOFF": (float, 0.05, "sparse-GRM off-diagonal threshold (-splmm default)"),
     "JX_TPU_SPARSE_MAX_DENSE_COMP": (int, 4096, "largest kinship component eigendecomposed densely; bigger (percolated) ones take per-lambda sparse-LU factors"),
     "JX_TPU_LOWMEM": (bool, False, "force the disk-backed windowed genotype path regardless of size"),

@@ -109,3 +109,16 @@ def grm_from_packed(pg: PackedGenotypes, method: int = 1,
     if K is None or denom <= 0:
         raise ValueError("GRM denominator is zero (no polymorphic SNPs?)")
     return K / denom
+
+
+def grm_denominator(pg: PackedGenotypes, method: int = 1) -> float:
+    """Normalizer matching grm_from_packed's accumulation: method 1
+    sum 2p(1-p); method 2 m; method 3 (dominance het-indicator)
+    sum hf(1-hf)."""
+    if method == 3:
+        _, _, var = _snp_scales(pg, 3)
+        return float(var.sum())
+    if method == 1:
+        var = 2.0 * pg.af * (1.0 - pg.af)
+        return float(var.sum())
+    return float(pg.m)

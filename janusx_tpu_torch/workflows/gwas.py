@@ -236,6 +236,16 @@ def _exact_cutoff(cfg: GwasConfig) -> float:
     return cfg.splmm_cutoff if cfg.splmm_exact_cutoff is None else cfg.splmm_exact_cutoff
 
 
+def resolve_mesh(n_devices: int | None):
+    """The device mesh of janusx_tpu/workflows/gwas.py:159: None for one
+    device (``n_devices`` None or 1), which is all the port runs on; more
+    raise until the multi-device slice lands (ROADMAP queue 1, item 23)."""
+    if n_devices is None or n_devices <= 1:
+        return None
+    raise NotImplementedError(
+        "multi-device meshes are not ported yet (ROADMAP queue 1, item 23)")
+
+
 def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
     t0 = time.monotonic()
     _check_models(cfg.models)

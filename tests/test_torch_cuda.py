@@ -21,7 +21,11 @@ plain version only. The routes without a kernel of their own (-lowrank,
 -splmm, -splmm-exact, -algwas) on the card against the same call on the
 CPU: Δ(-log10 p) <= 5e-3 (tests/test_scans.py:155), the device quadratic
 g'V^-1 g against the host f64 quad at rtol 2e-4
-(tests/test_sparse_path.py:106).
+(tests/test_sparse_path.py:106). The device steps of ``jx gs`` (the HE
+stream pass, marker effects, the PCG solve, the signed-hash accumulation,
+the TOP loss with its gradient and Hessian, the GBLUPad AI-REML) on the
+card against the same call on the CPU, each at the bound stated at its
+test.
 """
 
 import numpy as np
@@ -386,3 +390,109 @@ def test_algwas_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(card.selected, cpu.selected)
     np.testing.assert_allclose(card.ebic_path, cpu.ebic_path, rtol=1e-4)
     assert _dlogp(card.result.pwald, cpu.result.pwald) <= 5e-3
+
+
+# ------------------------------------------------------------ jx gs
+def test_he_stream_pass_on_card_matches_cpu(dev):
+    """The streamed HE pass (decode, C V, Cᵀ(C V) and the column sums)
+    and he_streamed on the card against the CPU: trace_k rel 1e-6,
+    trace_k2 rel 1e-5, h2 abs 1e-5, with the same probes."""
+    from janusx_tpu_torch.models import he
+
+    pg, _, Y, cov = _scan_problem(3000, 300, 1)
+    idx = np.arange(0, pg.n, 3)
+    fits = [he.he_streamed(pg, Y[:, 0], covariates=cov, probes=16, seed=4, sample_idx=idx,
+                           block=1024, device=d) for d in (dev, "cpu")]
+    assert fits[0].boundary == fits[1].boundary
+    assert fits[0].trace_k == pytest.approx(fits[1].trace_k, rel=1e-6)
+    assert fits[0].trace_k2 == pytest.approx(fits[1].trace_k2, rel=1e-5)
+    assert fits[0].h2 == pytest.approx(fits[1].h2, abs=1e-5)
+
+
+def test_marker_effects_on_card_match_cpu(dev):
+    """a = Z'α / denom on the card against the CPU: rtol 1e-4, atol 1e-6
+    (tests/test_gs.py:78)."""
+    from janusx_tpu_torch.gs.blup import marker_effects
+    from janusx_tpu_torch.models.grm import grm_denominator
+
+    pg, _, _, _ = _scan_problem(3000, 300, 1)
+    alpha = np.random.default_rng(3).normal(size=pg.n)
+    den = grm_denominator(pg)
+    got = marker_effects(pg, alpha, den, block=1024, device=dev)
+    np.testing.assert_allclose(got, marker_effects(pg, alpha, den, block=1024, device="cpu"),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_cg_solve_on_card_matches_cpu(dev):
+    """Jacobi-PCG of (K + λI) on the card against the CPU at a reachable
+    tol (1e-4): iterations within 1, x within 1e-4 ||x||; and the GS
+    route's solve at the default tol and iteration cap."""
+    from janusx_tpu_torch.gs.blup import fit_gblup_cg
+    from janusx_tpu_torch.ops.cg import cg_solve
+
+    pg, basis, Y, _ = _scan_problem(3000, 300, 1)
+    K = (basis.U * basis.S) @ basis.U.T
+    b = torch.as_tensor(Y[:, 0] - Y[:, 0].mean(), dtype=torch.float32)
+    res = {}
+    for d in (dev, "cpu"):
+        A = torch.as_tensor(K, dtype=torch.float32, device=d) + 0.5 * torch.eye(pg.n, device=d)
+        res[str(d)] = cg_solve(lambda v: A @ v, b.to(d), diag_precond=torch.diagonal(A),
+                               tol=1e-4, max_iter=500)
+    card, cpu = res[str(dev)], res["cpu"]
+    assert abs(int(card.iters) - int(cpu.iters)) <= 1 and int(cpu.iters) < 500
+    assert float(torch.linalg.norm(card.x.cpu() - cpu.x)) <= 1e-4 * float(torch.linalg.norm(cpu.x))
+    train = np.arange(pg.n - 50)
+    a_card, _ = fit_gblup_cg(K, Y[:, 0], train, 0.8, device=dev)
+    a_cpu, _ = fit_gblup_cg(K, Y[:, 0], train, 0.8, device="cpu")
+    assert np.linalg.norm(a_card - a_cpu) <= 1e-4 * np.linalg.norm(a_cpu)
+
+
+@pytest.mark.parametrize("standardize", [True, False])
+def test_hash_accumulation_on_card_matches_cpu(dev, standardize):
+    """The signed-hash sketch (index_add_ of signed rows into bucket rows;
+    atomics on the card) against the CPU: rtol 2e-4 / atol 2e-4
+    (tests/test_hashing.py:133), scale rel 1e-5, the same kept count."""
+    from janusx_tpu_torch.models.hashing import signed_hash_features
+
+    pg, _, _, _ = _scan_problem(3000, 300, 1)
+    kw = dict(n_buckets=512, standardize=standardize, block=1024)
+    Hd, sd, kd = signed_hash_features(pg, device=dev, **kw)
+    Hc, sc, kc = signed_hash_features(pg, device="cpu", **kw)
+    assert kd == kc and sd == pytest.approx(sc, rel=1e-5)
+    np.testing.assert_allclose(Hd, Hc, rtol=2e-4, atol=2e-4)
+
+
+def test_top_loss_grad_hess_on_card_match_cpu(dev):
+    """The TOP listwise loss, its gradient and Hessian (torch.func) in f64
+    on the card against the CPU, and the fitted weights (atol 1e-8, the
+    same iterations)."""
+    from janusx_tpu_torch.gs.top import _loss_grad_hess, top_fit
+
+    rng = np.random.default_rng(6)
+    P, T = rng.normal(size=(400, 5)), rng.normal(size=(400, 5))
+    w = rng.uniform(0.1, 1.0, 5)
+    card = _loss_grad_hess(*(torch.as_tensor(a, device=dev) for a in (w, P, T)), 1e-3)
+    cpu = _loss_grad_hess(*(torch.as_tensor(a) for a in (w, P, T)), 1e-3)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-10, atol=1e-10)
+    T[::5, 2] = np.nan
+    fits = [top_fit(T, T + 0.5 * P, device=d) for d in (dev, "cpu")]
+    assert (fits[0].n_iter, fits[0].converged) == (fits[1].n_iter, fits[1].converged)
+    np.testing.assert_allclose(fits[0].weights, fits[1].weights, rtol=0, atol=1e-8)
+
+
+def test_gblup_kernels_ai_reml_on_card_matches_cpu(dev):
+    """GBLUPad's AI-REML (f64, sample space) on the card against the CPU:
+    sigma2, Py and the test predictions rtol 1e-5."""
+    from janusx_tpu_torch.gs.blup import fit_gblup_kernels, predict_gblup_kernels
+    from janusx_tpu_torch.models.grm import grm_from_packed
+
+    pg, _, Y, _ = _scan_problem(3000, 300, 1)
+    Ks = {"add": grm_from_packed(pg, device="cpu"), "dom": grm_from_packed(pg, method=3, device="cpu")}
+    train, test = np.arange(240), np.arange(240, 300)
+    card, cpu = (fit_gblup_kernels(Ks, Y[:, 0], train, device=d) for d in (dev, "cpu"))
+    for k in cpu.sigma2:
+        assert card.sigma2[k] == pytest.approx(cpu.sigma2[k], rel=1e-5)
+    np.testing.assert_allclose(card.Py, cpu.Py, rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(predict_gblup_kernels(card, Ks, test),
+                               predict_gblup_kernels(cpu, Ks, test), rtol=1e-5)

@@ -6,7 +6,8 @@
   one switches to LM, ``-bimrange``, ``-global``, ``-scan-method brent``,
   the sparse routes on a band-streamed and on a written ``-spk`` GRM,
   ``-lowrank`` in two genetic models with ``-lowrank-prune``, ``-algwas``)
-  and must end with no ``jax`` module loaded.
+  and must end with no ``jax`` module loaded; a second one does the same
+  for ``jx gs`` and ``jx gspredict``.
 - The host modules the port carries as copies (janusx_tpu/__init__.py
   imports jax, so they cannot be shared by import) stay identical to their
   originals once ``janusx_tpu`` is renamed in import lines and citations
@@ -33,6 +34,8 @@ COPIES = (
                               "jxgrm")]
     + [f"utils/{m}.py" for m in ("nativelib", "tsv", "prefetch", "progress", "cache")]
     + ["models/scan_common.py", "models/farmcpu.py", "cli/common.py", "utils/history.py"]
+    + [f"gs/{m}.py" for m in ("__init__", "kfold", "metrics", "model_io", "workflow")]
+    + ["cli/gspredict.py"]
 )
 
 _IMPORT = re.compile(r"^\s*(from|import)\s+janusx_tpu\b")
@@ -119,6 +122,59 @@ def test_port_runs_without_jax(tmp_path):
     env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
                PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _SLICE, str(tmp_path)], env=env,
+                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_LOADED False" in proc.stdout
+
+
+_GS_SLICE = r"""
+import os, sys
+import numpy as np
+from janusx_tpu_torch.io import bitcodec
+from janusx_tpu_torch.io.gdata import SiteInfo
+from janusx_tpu_torch.io.plink import write_plink
+from janusx_tpu_torch.cli.main import main
+
+rng = np.random.default_rng(2)
+n, m = 70, 300
+g = rng.binomial(2, rng.uniform(0.1, 0.5, m)[:, None], size=(m, n))
+sites = SiteInfo(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
+                 snp=np.array([f"rs{i}" for i in range(m)], object),
+                 allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+d = sys.argv[1]
+write_plink(d + "/toy", bitcodec.pack_codes(g.astype(np.uint8)), n, sites,
+            np.array([f"s{j}" for j in range(n)], object))
+x = (g - g.mean(1, keepdims=True)).T
+Y = np.stack([x @ rng.normal(0, 0.1, m) + rng.normal(size=n) for _ in range(2)], axis=1)
+Y[:10] = np.nan  # the test set
+with open(d + "/toy.pheno", "w") as fh:
+    fh.write("ID\tt0\tt1\n")
+    fh.writelines(f"s{j}\t" + "\t".join("NA" if np.isnan(v) else str(v) for v in r) + "\n"
+                  for j, r in enumerate(Y))
+base = ["gs", "-bfile", d + "/toy", "-p", d + "/toy.pheno", "-cv", "3"]
+assert main(base + ["-BLUP", "-rrBLUP", "-GBLUPad", "-effect", "-save-model", "-select",
+                    "-o", d + "/o1"]) == 0
+assert main(base + ["-BLUP", "--rrblup-solver", "pcg", "-hash", "128", "-select",
+                    "-o", d + "/o2"]) == 0
+for f in ("o1/jxgs.t0.gebv.tsv", "o1/jxgs.t1.rrBLUP.effect.tsv", "o1/jxgs.gs.TOP.rank.tsv",
+          "o2/jxgs.gs.TOP.weights.tsv"):
+    assert os.path.exists(f"{d}/{f}"), f
+assert main(["gspredict", "-model", d + "/o1/jxgs.t0.rrBLUP.jxmodel.npz", "-bfile",
+             d + "/toy", "-o", d + "/o3"]) == 0
+assert os.path.exists(d + "/o3/gspred.gebv.tsv")
+print("JAX_LOADED", "jax" in sys.modules)
+"""
+
+
+def test_port_gs_runs_without_jax(tmp_path):
+    """``jx gs`` (BLUP, rrBLUP with exports, GBLUPad, the PCG route on a
+    signed-hash sketch, the TOP bundle) and ``jx gspredict`` through the
+    port's CLI in a fresh interpreter, with no jax module loaded."""
+    # one intra-op thread: the AI-REML and PCG loops of small torch ops
+    # stall on their own threads when the suite's workers share the cores
+    env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _GS_SLICE, str(tmp_path)], env=env,
                           cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX_LOADED False" in proc.stdout
