@@ -89,7 +89,28 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     routes, λ rel 1e-4, GEBVs rtol 1e-4 / atol 1e-6, CV pearson and HE h2
     within 1e-4); prints each CLI's wall, the run's and each method's
     seconds, and CUDA-event times of one HE stream pass, one marker-effect
-    pass and one PCG solve at the run's shapes; neither kernel launches.
+    pass and one PCG solve at the run's shapes; neither kernel launches;
+12. (run before phase 10's lines) population structure and QC on phase 5's
+    panel: ``jx grm --stage-timing -sparse 0.05`` (K symmetric, the
+    planted sibships' mean K in [0.45, 0.55] and the mean between them
+    within 0.01 of 0, the .spgrm equal to sparsify_grm of the dense K) and
+    ``jx grm -part 4`` (the stacked strips equal K's rows within rtol 1e-6,
+    floor 1e-6 x mean diagonal); ``jx pca`` by ``-k`` the GRM, by
+    ``-bfile`` (the same eigenvalues within rtol 1e-6) and by ``-rsvd``
+    (against the exact route: printed only, as the panel has no population
+    structure); ``jx gstats -site -ind -king -ldscore 100`` (exactly the
+    3,880 full-sib pairs, mean φ within 0.02 of 0.25, an unrelated set of
+    one sample per sibship, the site table equal to bitcodec.row_stats at
+    %.6g); ``jx fvlmm2 -i`` with ``-k`` the GRM over pairs of planted QTLs
+    and of random SNPs in every operator, with and without '!', and one
+    unknown name (the TSV layout, the .skip table, at least half of the
+    planted literals at joint p < 1e-6, the TSV equal to a rerun of the
+    scan on the card at its printed digits); and the card against the CPU
+    on the first 16,384 SNPs: the GRM rtol 1e-6 (floor 1e-6 x mean
+    diagonal), RSVD eigenvalues rtol 1e-4 with the PC subspaces within 0.01
+    rad, the LD scores rtol 1e-5, and the combo scan at the same basis and
+    null λ rtol 1e-6 on beta, se and p; prints each CLI's wall and grm's
+    stage seconds; neither kernel launches.
 """
 
 from __future__ import annotations
@@ -1186,6 +1207,222 @@ def run_gs_phase(d: str, prefix: str, pheno: str, gv, cpu, dev, smi: str) -> dic
     return total
 
 
+# ------------------------------------------------------------ phase 12
+LD_WIN = 100  # -ldscore's SNP window
+SIB_PAIRS = N_SAMPLES // FAMILY * (FAMILY * (FAMILY - 1) // 2)  # 388 x 10 = 3,880
+
+
+def printed_close(got: float, want: float, rtol: float) -> bool:
+    """``got`` within rtol of ``want`` printed at %.6g: plus one unit of
+    its sixth significant digit."""
+    unit = 10.0 ** (np.floor(np.log10(abs(want))) - 5) if want else 0.0
+    return abs(got - want) <= rtol * abs(want) + unit
+
+
+def combo_expressions(path: str, qtl_ids, pg) -> list:
+    """``jx fvlmm2 -i``'s file: eight expressions over pairs of planted QTLs
+    (every operator, with and without '!'), four over random QC'd SNPs and
+    one with an unknown name, which the CLI skips. Returns the lines."""
+    q = sorted(qtl_ids, key=lambda s: int(s[3:]))[:16]
+    pool = sorted(set(pg.sites.snp) - set(qtl_ids), key=lambda s: int(s[3:]))
+    r = [pool[i] for i in np.random.default_rng(12).choice(len(pool), 8, replace=False)]
+    lines = [f"{q[0]}&{q[1]}", f"{q[2]}|{q[3]}", f"{q[4]}*{q[5]}", f"{q[6]}^{q[7]}",
+             f"!{q[8]}&{q[9]}", f"{q[10]}|!{q[11]}", f"{q[12]}^!{q[13]}", f"!{q[14]}&!{q[15]}",
+             f"{r[0]}&{r[1]}", f"{r[2]}|!{r[3]}", f"{r[4]}*{r[5]}", f"!{r[6]}^{r[7]}",
+             f"nosuch&{r[0]}"]
+    with open(path, "wt") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return lines
+
+
+def run_structure_phase(d: str, prefix: str, pheno: str, qtl_ids, cpu, dev) -> dict:
+    """Phase 12: ``jx grm``, ``jx pca``, ``jx gstats`` and ``jx fvlmm2 -i``
+    on phase 5's panel, then the card against the CPU on its first
+    CROSS_SNPS SNPs. Returns the kernel launches (both 0: none of these
+    paths reaches a kernel)."""
+    import scipy.sparse
+
+    from janusx_tpu_torch.cli.fvlmm2 import TSV_COLUMNS
+    from janusx_tpu_torch.cli.gstats import _site_ldscores
+    from janusx_tpu_torch.core import reml
+    from janusx_tpu_torch.core.spectral import eigh_grm
+    from janusx_tpu_torch.io import bitcodec
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+    from janusx_tpu_torch.io.jxgrm import read_jxgrm
+    from janusx_tpu_torch.io.plink import write_plink
+    from janusx_tpu_torch.models import combo
+    from janusx_tpu_torch.models.grm import grm_from_packed
+    from janusx_tpu_torch.models.pca import rsvd_pca
+    from janusx_tpu_torch.models.splmm import sparsify_grm
+
+    t0 = time.monotonic()
+    total = {"decode_rotate": 0, "grid_neg_reml_lattice": 0}
+    walls = {}
+
+    def cli(argv, what):
+        printed, wall, launches = run_cli(argv, f"phase 12 {what}")
+        for k, v in launches.items():
+            total[k] += v
+        walls[what] = wall
+        return printed
+
+    out, n = os.path.join(d, "out12"), N_SAMPLES
+    fam = np.arange(n) // FAMILY
+    head = cpu["full"].take_snps(np.arange(CROSS_SNPS))
+
+    # 1. jx grm: the dense K, its .spgrm, then -part 4
+    printed = cli(["grm", "-bfile", prefix, "--stage-timing", "-sparse", "0.05", "-o", out],
+                  "grm")
+    stages = next(ln for ln in printed.splitlines() if ln.startswith("stage-timing"))
+    kpath = os.path.join(out, "jx.cGRM.npy")
+    K = np.load(kpath)
+    require(K.shape == (n, n) and bool(np.isfinite(K).all()), f"phase 12 K {K.shape}")
+    dmean = float(np.mean(np.diag(K)))
+    asym = float(np.abs(K - K.T).max())
+    require(asym <= 1e-6 * dmean, f"phase 12 K asymmetric by {asym:.3g}")
+    sib = (fam[:, None] == fam[None, :]) & ~np.eye(n, dtype=bool)
+    within, between = float(K[sib].mean()), float(K[fam[:, None] != fam[None, :]].mean())
+    require(0.45 <= within <= 0.55 and abs(between) <= 0.01,
+            f"phase 12 K: sibship mean {within:.4f}, between sibships {between:.4g}")
+    # .jxgrm stores the lower triangle, diagonal included
+    L = read_jxgrm(os.path.join(out, "jx.cGRM.spgrm"), symmetrize=False).tocsc()
+    want = scipy.sparse.tril(sparsify_grm(K, 0.05), format="csc")
+    want.sort_indices()
+    require(np.array_equal(L.indptr, want.indptr) and np.array_equal(L.indices, want.indices)
+            and np.array_equal(L.data, want.data),
+            "phase 12 .spgrm differs from sparsify_grm of the dense K")
+    cli(["grm", "-bfile", prefix, "-part", "4", "-o", out, "-prefix", "part"], "grm -part 4")
+    S = np.vstack([np.load(os.path.join(out, f"part.cGRM.part{k}_4.npy")) for k in range(1, 5)])
+    err = float(np.max(np.abs(S - K) - 1e-6 * np.abs(K))) if S.shape == K.shape else np.inf
+    require(err <= 1e-6 * dmean, f"phase 12 -part 4 strips vs K: {err:.3g} over rtol 1e-6")
+    Kc, Kh = (grm_from_packed(head, device=x) for x in (dev, "cpu"))
+    e_grm = float(np.max(np.abs(Kc - Kh) / (np.abs(Kh) + np.mean(np.diag(Kh)))))
+    require(e_grm <= 1e-6, f"phase 12 GRM card vs cpu {e_grm:.3g}")
+    say(f"phase 12 grm: {stages.replace(chr(9), ' ')}; K {n}x{n}, asymmetry {asym:.3g}, "
+        f"sibship mean {within:.4f}, between {between:.4g}; .spgrm nnz {L.nnz} (lower "
+        f"triangle) = sparsify_grm; -part 4 strips vs K max |err| - 1e-6|K| = {err:.3g}; "
+        f"card vs cpu on {CROSS_SNPS} SNPs max rel {e_grm:.3g}; cli {walls['grm']:.2f} s, "
+        f"-part 4 {walls['grm -part 4']:.2f} s")
+
+    # 2. jx pca: -k the GRM, the same by -bfile, and -rsvd
+    for tag, what, argv in (("pk", "-k", ["-k", kpath]), ("pe", "-bfile", ["-bfile", prefix]),
+                            ("pr", "-rsvd", ["-bfile", prefix, "-rsvd"])):
+        cli(["pca", *argv, "-dim", "10", "-o", out, "-prefix", tag], f"pca {what}")
+    ev = {t: np.loadtxt(os.path.join(out, f"{t}.eigenval")) for t in ("pk", "pe", "pr")}
+    pcs = {t: np.loadtxt(os.path.join(out, f"{t}.eigenvec"), dtype=str) for t in ev}
+    for t in ev:
+        require(ev[t].shape == (10,) and pcs[t].shape == (n, 11)
+                and bool(np.all(np.diff(ev[t]) <= 0)),
+                f"phase 12 pca {t}: {ev[t].shape} values, {pcs[t].shape} PC table")
+    require(all(printed_close(a, b, 1e-6) for a, b in zip(ev["pe"], ev["pk"])),
+            f"phase 12 pca -bfile vs -k eigenvalues {ev['pe']} vs {ev['pk']}")
+    angle = lambda A, B: float(np.arccos(np.clip(np.linalg.svd(
+        np.linalg.qr(A)[0].T @ np.linalg.qr(B)[0], compute_uv=False).min(), -1.0, 1.0)))
+    vec = lambda t: pcs[t][:, 1:].astype(float)
+    a_exact = angle(vec("pr"), vec("pe"))
+    (vc, Vc), (vh, Vh) = (rsvd_pca(head, n_pc=10, power_iters=3, method=1, device=x)
+                          for x in (dev, "cpu"))
+    e_rsvd, a_rsvd = float(np.max(np.abs(vc - vh) / np.abs(vh))), angle(Vc, Vh)
+    require(e_rsvd <= 1e-4 and a_rsvd <= 0.01,
+            f"phase 12 rsvd card vs cpu: eigenvalues rel {e_rsvd:.3g}, PC subspace "
+            f"{a_rsvd:.3g} rad")
+    say(f"phase 12 pca: top eigenvalues {np.round(ev['pe'][:3], 4).tolist()} .. "
+        f"{ev['pe'][-1]:.4f}, -bfile = -k within rtol 1e-6; -rsvd vs exact (printed only): "
+        f"eigenvalues {np.round(ev['pr'] / ev['pe'], 4).tolist()} of exact, largest principal "
+        f"angle {a_exact:.3g} rad; rsvd card vs cpu on {CROSS_SNPS} SNPs: eigenvalues rel "
+        f"{e_rsvd:.3g}, largest principal angle {a_rsvd:.3g} rad; cli -k {walls['pca -k']:.2f} s, "
+        f"-bfile {walls['pca -bfile']:.2f} s, -rsvd {walls['pca -rsvd']:.2f} s")
+
+    # 3. jx gstats: site and sample tables, LD scores, KING
+    cli(["gstats", "-bfile", prefix, "-site", "-ind", "-king", "-ldscore", str(LD_WIN),
+         "-o", out, "-prefix", "st"], "gstats")
+    _, rows = read_tsv(os.path.join(out, "st.king.pairs.tsv"))
+    ind = lambda s: int(s[3:])  # the samples are ind<j>
+    pairs = {(ind(a), ind(b)) for a, b, _ in rows}
+    sibs = {(i, j) for i in range(n) for j in range(i + 1, (fam[i] + 1) * FAMILY)}
+    phi = np.array([float(r[2]) for r in rows])
+    require(len(rows) == SIB_PAIRS and pairs == sibs,
+            f"phase 12 KING: {len(rows)} pairs, {len(pairs & sibs)} of the {SIB_PAIRS} sib pairs")
+    require(abs(phi.mean() - 0.25) <= 0.02, f"phase 12 KING mean φ {phi.mean():.4f}")
+    with open(os.path.join(out, "st.king.unrelated.id")) as fh:
+        unrel = [ind(ln.strip()) for ln in fh if ln.strip()]
+    require(len(unrel) == n // FAMILY and len(set(fam[unrel])) == n // FAMILY,
+            f"phase 12 KING unrelated set of {len(unrel)}")
+    header, site = read_tsv(os.path.join(out, "st.site.stats.tsv"))
+    raw = load_raw_packed(prefix)
+    nm, alt, het = bitcodec.row_stats(raw.packed, n)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        af = np.where(nm > 0, alt / (2.0 * nm), np.nan)
+        cols = (af, np.minimum(af, 1 - af), 1.0 - nm / n, np.where(nm > 0, het / nm, np.nan))
+    require(header.split("\t")[5:] == ["af", "maf", "miss", "het", "ldscore"]
+            and len(site) == raw.m and all(r[5:9] == [f"{c[i]:.6g}" for c in cols]
+                                           for i, r in enumerate(site)),
+            "phase 12 gstats site table differs from bitcodec.row_stats")
+    sub = os.path.join(d, "ld16k")
+    write_plink(sub, raw.packed[:CROSS_SNPS], n, raw.sites.take(np.arange(CROSS_SNPS)),
+                raw.samples)
+    ld_c, ld_h = (_site_ldscores(load_raw_packed(sub), "variants", LD_WIN, device=x)
+                  for x in (dev, "cpu"))
+    e_ld = float(np.max(np.abs(ld_c - ld_h) / np.abs(ld_h)))
+    require(e_ld <= 1e-5, f"phase 12 LD scores card vs cpu rel {e_ld:.3g}")
+    inner = CROSS_SNPS - LD_WIN  # whole windows in both the panel and its first 16,384
+    require(all(printed_close(a, float(r[9]), 1e-5) for a, r in zip(ld_c[:inner], site)),
+            "phase 12 LD scores of the first SNPs differ from the site table")
+    say(f"phase 12 gstats: KING {len(rows)} pairs = the {SIB_PAIRS} full-sib pairs, mean φ "
+        f"{phi.mean():.4f} (min {phi.min():.4f}), unrelated set {len(unrel)}; site table "
+        f"({raw.m} rows) = bitcodec.row_stats; LD scores (window {LD_WIN}) mean "
+        f"{ld_c.mean():.4f}, card vs cpu on {CROSS_SNPS} SNPs max rel {e_ld:.3g}, = the "
+        f"table's first {inner}; cli {walls['gstats']:.2f} s")
+
+    # 4. jx fvlmm2 -i with -k the GRM
+    path = os.path.join(d, "pairs.txt")
+    exprs = combo_expressions(path, qtl_ids, cpu["pg"])
+    cli(["fvlmm2", "-bfile", prefix, "-p", pheno, "-i", path, "-k", kpath, "-o", out,
+         "-prefix", "fx"], "fvlmm2 -i")
+    header, rows = read_tsv(os.path.join(out, "fx.test0.fvlmm2.tsv"))
+    require(header == "\t".join(TSV_COLUMNS) and [r[2] for r in rows] == exprs[:12]
+            and all(len(r) == len(TSV_COLUMNS) and r[4] == "" for r in rows),
+            f"phase 12 fvlmm2 TSV: {header!r}, {[r[2] for r in rows]}")
+    skip = read_tsv(os.path.join(out, "fx.fvlmm2.skip"))
+    require(skip == ("line\texpr\treason",
+                     [["13", exprs[12], "SNP token 'nosuch' was not found"]]),
+            f"phase 12 fvlmm2 .skip table {skip}")
+    lit = [float(r[c]) for r in rows[:8] for c in (9, 10)]
+    hits = sum(p < 1e-6 for p in lit)
+    require(hits >= len(lit) // 2, f"phase 12 fvlmm2: {hits} of {len(lit)} planted literals "
+                                   "at joint p < 1e-6")
+    keep, pg, y = cpu["keep"], cpu["pg"], cpu["y"]
+    basis = eigh_grm(K[np.ix_(keep, keep)], diag_ridge=1e-6)
+    specs, _ = combo.parse_interaction_file(path, combo.build_name_map(pg.sites))
+    card, null = combo.fvlmm_joint_combo_scan(pg, basis, y, None, specs, device=dev)
+    cols = ("beta_combo_joint", "se_combo_joint", "p_combo_joint", "p_lit1_joint",
+            "p_lit2_joint")
+    require(all(printed_close(c[k], float(r[TSV_COLUMNS.index(k)]), 1e-6)
+                for c, r in zip(card, rows) for k in cols),
+            "phase 12 fvlmm2: the TSV differs from the scan rerun on the card")
+    own = combo.fvlmm_joint_combo_scan(pg, basis, y, None, specs[:1], device="cpu")[1]
+    # the CPU rescan at the card's null λ: the combo design carries its
+    # intercept twice (make_rotated prepends one), so the null -REML is flat
+    # to ~1e-7 near its optimum and two Brent runs stop ~1e-5 apart in log10 λ
+    fit = reml.fit_null_reml
+    reml.fit_null_reml = lambda rot, *a, **k: null
+    try:
+        host, _ = combo.fvlmm_joint_combo_scan(pg, basis, y, None, specs, device="cpu")
+    finally:
+        reml.fit_null_reml = fit
+    e_combo = max(abs(c[k] - h[k]) / abs(h[k]) for c, h in zip(card, host) for k in cols)
+    require(e_combo <= 1e-6, f"phase 12 fvlmm2 card vs cpu rel {e_combo:.3g}")
+    say(f"phase 12 fvlmm2 -i: {len(rows)} expressions ({len(skip[1])} skipped), planted "
+        f"literals at joint p < 1e-6: {hits} of {len(lit)} (p {[f'{v:.3g}' for v in lit]}), "
+        f"combo p {[f'{float(r[7]):.3g}' for r in rows]}; λ_null {null.lbd:.6g} (the cpu's own "
+        f"{own.lbd:.6g}, Δlog10 {abs(own.log10_lbd - null.log10_lbd):.3g}); card vs cpu at "
+        f"that λ max rel {e_combo:.3g}; cli {walls['fvlmm2 -i']:.2f} s")
+    require(total == {"decode_rotate": 0, "grid_neg_reml_lattice": 0},
+            f"phase 12: a kernel launched on the structure path: {total}")
+    say(f"phase 12 done in {time.monotonic() - t0:.2f} s")
+    return total
+
+
 def check_kernels(dev) -> dict:
     """Phases 2-4: build, then each kernel against its plain version."""
     from janusx_tpu_torch import config
@@ -1331,6 +1568,9 @@ def main() -> int:
         t0 = time.monotonic()
         paths["gs"] = run_gs_phase(d, prefix, pheno, gv, cpu, dev, smi)
         walls["gs"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        paths["structure"] = run_structure_phase(d, prefix, pheno, qtl_ids, cpu, dev)
+        walls["structure"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]

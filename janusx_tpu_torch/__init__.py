@@ -6,8 +6,9 @@ rewritten as a hand-written CUDA C++ kernel for sm_90a (csrc/). It imports
 torch, numpy and scipy, never jax. Ported so far: every ``jx gwas`` route
 but the multi-device ``mesh``, and ``jx gs`` (BLUP, GBLUP, rrBLUP exact and
 PCG, GBLUPd/ad, the HE pre-fit, ``-hash``, the TOP bundle, effect and model
-export; not the Bayes methods) with ``jx gspredict``. ROADMAP.md lists what
-remains.
+export; not the Bayes methods) with ``jx gspredict``, ``jx grm``, ``jx pca``,
+``jx gstats`` (site/sample tables, LD scores, KING) and ``jx fvlmm2 -i``.
+ROADMAP.md lists what remains.
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,10 @@ from janusx_tpu_torch import __version__
 _MODULES: dict[str, tuple[str, str]] = {
     "gwas": ("janusx_tpu_torch.cli.gwas", "GWAS scans (every jx gwas route but the multi-device mesh)"),
     "gs": ("janusx_tpu_torch.cli.gs", "Genomic selection: BLUP/GBLUP/rrBLUP (Bayes not yet)"),
+    "grm": ("janusx_tpu_torch.cli.grm", "Genomic relationship matrix"),
+    "pca": ("janusx_tpu_torch.cli.pca", "Principal components (eigh or randomized SVD)"),
+    "gstats": ("janusx_tpu_torch.cli.gstats", "Per-site / per-sample genotype statistics"),
+    "fvlmm2": ("janusx_tpu_torch.cli.fvlmm2", "G-by-E joint interaction scan (= jx gwas -fvlmm2)"),
     "gspredict": ("janusx_tpu_torch.cli.gspredict", "Predict gebv from a saved .jxmodel.npz"),
 }
 

@@ -46,6 +46,16 @@ def _snp_scales(pg: PackedGenotypes, method: int):
     return pg.mean, inv_sd, var
 
 
+def _decode_block(pk, mn, iv, n: int, dom: bool) -> torch.Tensor:
+    """One packed SNP block decoded to its f32 (B, n) C: the centered
+    heterozygosity indicator for method 3, else standardized rows."""
+    if dom:
+        c = decode.decode_dominance(pk, mn, torch.float32)
+    else:
+        c = decode.decode_standardized(pk, mn, iv, torch.float32)
+    return c[:, :n]
+
+
 def _grm_accumulate(pk, mn, iv, n: int, dom: bool) -> torch.Tensor:
     """Unnormalized (n, n) f64 sum over pre-blocked (n_super, FLUSH, B, nb)
     packed rows: f32 CᵀC within a superblock, f64 across superblocks."""
@@ -53,12 +63,7 @@ def _grm_accumulate(pk, mn, iv, n: int, dom: bool) -> torch.Tensor:
     for s in range(pk.shape[0]):
         acc32 = torch.zeros((n, n), dtype=torch.float32, device=pk.device)
         for f in range(pk.shape[1]):
-            if dom:
-                c = decode.decode_dominance(pk[s, f], mn[s, f], torch.float32)
-            else:
-                c = decode.decode_standardized(pk[s, f], mn[s, f], iv[s, f],
-                                               torch.float32)
-            c = c[:, :n]
+            c = _decode_block(pk[s, f], mn[s, f], iv[s, f], n, dom)
             acc32 += c.T @ c
         acc += acc32.to(torch.float64)
     return acc
@@ -122,3 +127,49 @@ def grm_denominator(pg: PackedGenotypes, method: int = 1) -> float:
         var = 2.0 * pg.af * (1.0 - pg.af)
         return float(var.sum())
     return float(pg.m)
+
+
+def grm_strip_from_packed(pg: PackedGenotypes, rows: np.ndarray, method: int = 1,
+                          block: int = config.DEFAULT_SNP_BLOCK,
+                          device=None) -> np.ndarray:
+    """Row strip K[rows, :] of the GRM without the full (n, n) matrix (the
+    engine of ``jx grm -part``/``-part-group``): per resident SNP block,
+    a full-f32 C[:, rows]ᵀC added to an f64 (|rows|, n) accumulator on the
+    device, then one division by the denominator."""
+    dev = config.resolve_device(device)
+    rows = np.asarray(rows, np.int64)
+    mean, inv_sd, var = _snp_scales(pg, method)
+    n, m = pg.n_samples, pg.m
+    block = min(block, m)
+    shape = (-(-m // block), block)
+    pk = devcache.device_packed_blocks(pg, shape, dev, lane_align=4)
+    mn = devcache.to_device_blocks(mean, shape, 0.0, torch.float32, dev)
+    iv = devcache.to_device_blocks(inv_sd, shape, 0.0, torch.float32, dev)
+    rows_d = torch.as_tensor(rows, device=dev)
+    acc = torch.zeros((len(rows), n), dtype=torch.float64, device=dev)
+    for b in range(shape[0]):
+        c = _decode_block(pk[b], mn[b], iv[b], n, method == 3)
+        acc += (c[:, rows_d].T @ c).to(torch.float64)
+    denom = float(var.sum()) if method in (1, 3) else float(m)
+    if denom <= 0:
+        raise ValueError("GRM denominator is zero (no polymorphic SNPs?)")
+    return acc.cpu().numpy() / denom
+
+
+def balanced_part_bounds(n: int, n_parts: int) -> list:
+    """GCTA-like work-balanced row partition of the lower triangle:
+    row i contributes i+1 cells, so part boundaries equalize cumulative
+    i(i+1)/2 shares. Returns [(start, end), ...]."""
+    total = n * (n + 1) / 2.0
+    bounds = []
+    start = 0
+    for k in range(1, n_parts + 1):
+        target = total * k / n_parts
+        # smallest e with e(e+1)/2 >= target
+        e = int(np.ceil((-1 + np.sqrt(1 + 8 * target)) / 2))
+        e = min(max(e, start + 1), n)
+        if k == n_parts:
+            e = n
+        bounds.append((start, e))
+        start = e
+    return bounds

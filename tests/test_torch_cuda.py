@@ -23,9 +23,10 @@ CPU: Δ(-log10 p) <= 5e-3 (tests/test_scans.py:155), the device quadratic
 g'V^-1 g against the host f64 quad at rtol 2e-4
 (tests/test_sparse_path.py:106). The device steps of ``jx gs`` (the HE
 stream pass, marker effects, the PCG solve, the signed-hash accumulation,
-the TOP loss with its gradient and Hessian, the GBLUPad AI-REML) on the
-card against the same call on the CPU, each at the bound stated at its
-test.
+the TOP loss with its gradient and Hessian, the GBLUPad AI-REML) and of
+``jx grm``/``pca``/``gstats``/``fvlmm2 -i`` (a GRM strip, the RSVD pass,
+KING's tile pair, the joint GLS of the combo scan) on the card against
+the same call on the CPU, each at the bound stated at its test.
 """
 
 import numpy as np
@@ -496,3 +497,86 @@ def test_gblup_kernels_ai_reml_on_card_matches_cpu(dev):
     np.testing.assert_allclose(card.Py, cpu.Py, rtol=1e-5, atol=1e-9)
     np.testing.assert_allclose(predict_gblup_kernels(card, Ks, test),
                                predict_gblup_kernels(cpu, Ks, test), rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", [1, 2, 3])
+def test_grm_strip_on_card_matches_cpu(dev, method):
+    """A -part strip of the GRM on the card against the CPU: rtol 1e-6 with
+    the floor 1e-6 x max|K| (tests/test_torch_grm.py)."""
+    from janusx_tpu_torch.models.grm import grm_strip_from_packed
+
+    pg, _, _, _ = _scan_problem(3000, 300, 1)
+    rows = np.arange(40, 170)
+    card, cpu = (grm_strip_from_packed(pg, rows, method=method, block=512, device=d)
+                 for d in (dev, "cpu"))
+    np.testing.assert_allclose(card, cpu, rtol=1e-6, atol=1e-6 * np.abs(cpu).max())
+
+
+def test_rsvd_pass_and_pca_on_card_match_cpu(dev):
+    """One RSVD pass A'(A V) on the card against the CPU (f32 sums in two
+    orders: rtol 1e-4 with the floor 1e-4 x max), and rsvd_pca's
+    eigenvalues rtol 1e-4 with the same seed."""
+    from janusx_tpu_torch.models.grm import _snp_scales
+    from janusx_tpu_torch.models.pca import _rsvd_av, rsvd_pca
+    from janusx_tpu_torch.utils import devcache
+
+    pg, _, _, _ = _scan_problem(3000, 300, 1)
+    _, inv_sd, _ = _snp_scales(pg, 2)
+    shape = (-(-pg.m // 512), 512)
+    V = np.random.default_rng(1).normal(size=(384, 12)).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        pk = devcache.device_packed_blocks(pg, shape, d, lane_align=128)
+        mn = devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, d)
+        iv = devcache.to_device_blocks(inv_sd, shape, 0.0, torch.float32, d)
+        out[d.type] = _rsvd_av(pk, mn, iv, torch.as_tensor(V, device=d)).cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4,
+                               atol=1e-4 * np.abs(out["cpu"]).max())
+    (vc, _), (vh, _) = (rsvd_pca(pg, n_pc=5, seed=2, block=512, device=d) for d in (dev, "cpu"))
+    np.testing.assert_allclose(vc, vh, rtol=1e-4)
+
+
+def test_king_tile_pair_on_card_matches_cpu(dev):
+    """KING's tile pair on the card: the indicator products are exact
+    integer counts in f32 with TF32 off, so φ and the thresholded pairs
+    equal the CPU's exactly; the dense kinship too."""
+    from janusx_tpu_torch.models.king import king_kinship, king_related_pairs
+
+    pg, _, _, _ = _scan_problem(3000, 300, 1)
+    pg.packed[:, 1] = pg.packed[:, 0]  # samples 4-7 duplicate samples 0-3
+    card, cpu = (king_related_pairs(pg, tile=128, block=512, device=d) for d in (dev, "cpu"))
+    assert len(cpu[0]) >= 4
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(king_kinship(pg, block=512, device=dev),
+                                  king_kinship(pg, block=512, device="cpu"))
+
+
+def test_joint_chunk_and_combo_scan_on_card_match_cpu(dev, monkeypatch):
+    """The batched joint GLS of ``jx fvlmm2 -i`` in f64 on the card
+    against the CPU (rtol 1e-10), and the combo scan at the same basis
+    and null λ: beta, se and p rtol 1e-6."""
+    from janusx_tpu_torch.core import reml
+    from janusx_tpu_torch.models import combo
+
+    rng = np.random.default_rng(4)
+    n, p, B = 300, 3, 64
+    args = [rng.normal(size=(B, 3, n)), np.column_stack([np.ones(n), rng.normal(size=(n, 2))]),
+            rng.normal(size=n), rng.uniform(0.5, 2.0, n)]
+    card, cpu = (combo._joint_chunk(*(torch.as_tensor(a, device=d) for a in args), n, p)
+                 for d in (dev, "cpu"))
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-10)
+
+    pg, basis, Y, cov = _scan_problem(3000, 300, 1)
+    specs = [combo.ComboSpec(f"rs{i}{op}rs{i + 7}", f"rs{i}", op, f"rs{i + 7}", i, i + 7,
+                             i % 3 == 0 and op != "*", i % 5 == 0 and op != "*")
+             for i, op in zip(range(0, 40), "&|*^" * 10)]
+    got, null = combo.fvlmm_joint_combo_scan(pg, basis, Y[:, 0], cov, specs, batch_size=16,
+                                             device=dev)
+    monkeypatch.setattr(reml, "fit_null_reml", lambda rot, *a, **k: null)
+    want, _ = combo.fvlmm_joint_combo_scan(pg, basis, Y[:, 0], cov, specs, batch_size=16,
+                                           device="cpu")
+    for a, b in zip(got, want):
+        for k in ("beta_combo_joint", "se_combo_joint", "p_combo_joint", "p_lit1_joint",
+                  "p_lit2_joint"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)

@@ -7,12 +7,15 @@
   the sparse routes on a band-streamed and on a written ``-spk`` GRM,
   ``-lowrank`` in two genetic models with ``-lowrank-prune``, ``-algwas``)
   and must end with no ``jax`` module loaded; a second one does the same
-  for ``jx gs`` and ``jx gspredict``.
+  for ``jx gs`` and ``jx gspredict``, a third for ``jx grm``, ``jx pca``,
+  ``jx gstats`` and ``jx fvlmm2 -i``, which must also load neither
+  matplotlib nor pandas (so they run where neither is installed).
 - The host modules the port carries as copies (janusx_tpu/__init__.py
   imports jax, so they cannot be shared by import) stay identical to their
   originals once ``janusx_tpu`` is renamed in import lines and citations
   of the upstream JanusX sources drop the local checkout prefix the
-  originals give them.
+  originals give them; so do the host functions that the ported modules
+  keep line for line.
 """
 
 import inspect
@@ -35,7 +38,7 @@ COPIES = (
     + [f"utils/{m}.py" for m in ("nativelib", "tsv", "prefetch", "progress", "cache")]
     + ["models/scan_common.py", "models/farmcpu.py", "cli/common.py", "utils/history.py"]
     + [f"gs/{m}.py" for m in ("__init__", "kfold", "metrics", "model_io", "workflow")]
-    + ["cli/gspredict.py"]
+    + ["cli/gspredict.py", "cli/pca.py", "plots/__init__.py", "plots/structure.py"]
 )
 
 _IMPORT = re.compile(r"^\s*(from|import)\s+janusx_tpu\b")
@@ -178,6 +181,85 @@ def test_port_gs_runs_without_jax(tmp_path):
                           cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX_LOADED False" in proc.stdout
+
+
+_STRUCT_SLICE = r"""
+import os, sys
+import numpy as np
+from janusx_tpu_torch.io import bitcodec
+from janusx_tpu_torch.io.gdata import SiteInfo
+from janusx_tpu_torch.io.plink import write_plink
+from janusx_tpu_torch.cli.main import main
+
+rng = np.random.default_rng(3)
+n, m = 60, 300
+g = rng.binomial(2, rng.uniform(0.1, 0.5, m)[:, None], size=(m, n)).astype(np.uint8)
+g[:, 1] = g[:, 0]  # a duplicate pair for KING
+g[rng.random((m, n)) < 0.02] = 3
+sites = SiteInfo(chrom=np.array(["1"] * 150 + ["2"] * 150, object), pos=np.arange(1, m + 1),
+                 snp=np.array([f"rs{i}" for i in range(m)], object),
+                 allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+d = sys.argv[1]
+write_plink(d + "/toy", bitcodec.pack_codes(g), n, sites,
+            np.array([f"s{j}" for j in range(n)], object))
+with open(d + "/toy.pheno", "w") as fh:
+    fh.write("ID\tt0\n" + "".join(f"s{j}\t{v}\n" for j, v in enumerate(rng.normal(size=n))))
+with open(d + "/pairs.txt", "w") as fh:
+    fh.write("rs1&rs2\n!rs3|rs4\nrs5*rs6\nrs7^!rs8\nnosuch&rs1\n")
+b = ["-bfile", d + "/toy"]
+assert main(["grm", *b, "-sparse", "--stage-timing", "-o", d + "/g"]) == 0
+assert main(["grm", *b, "-part", "3", "-o", d + "/g", "-prefix", "p"]) == 0
+assert main(["pca", "-k", d + "/g/jx.cGRM.npy", "-dim", "3", "-o", d + "/k"]) == 0
+assert main(["pca", *b, "-dim", "3", "-o", d + "/e"]) == 0
+assert main(["pca", *b, "-dim", "3", "-rsvd", "-o", d + "/r"]) == 0
+assert main(["gstats", *b, "-site", "-ind", "-king", "-ldscore", "20", "-o", d + "/s"]) == 0
+assert main(["fvlmm2", *b, "-p", d + "/toy.pheno", "-i", d + "/pairs.txt", "-k",
+             d + "/g/jx.cGRM.npy", "-o", d + "/f"]) == 0
+for f in ("g/jx.cGRM.spgrm", "g/p.cGRM.part3_3.npy", "k/jx.eigenvec", "r/jx.eigenval",
+          "s/jx.king.pairs.tsv", "f/jx.t0.fvlmm2.tsv", "f/jx.fvlmm2.skip"):
+    assert os.path.exists(f"{d}/{f}"), f
+print("JAX_LOADED", "jax" in sys.modules)
+print("MPL_LOADED", "matplotlib" in sys.modules)
+print("PANDAS_LOADED", "pandas" in sys.modules)
+"""
+
+
+def test_port_structure_runs_without_jax(tmp_path):
+    """``jx grm`` (-sparse, -part), ``jx pca`` (-k, eigh, -rsvd), ``jx
+    gstats -site -ind -king -ldscore`` and ``jx fvlmm2 -i`` through the
+    port's CLI in a fresh interpreter, with no jax, matplotlib or pandas
+    module loaded."""
+    env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
+               PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _STRUCT_SLICE, str(tmp_path)], env=env,
+                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for mod in ("JAX", "MPL", "PANDAS"):
+        assert f"{mod}_LOADED False" in proc.stdout
+
+
+# functions that the ported modules keep line for line: (module, name)
+_KEPT = (
+    [("models/grm.py", "balanced_part_bounds"), ("models/pca.py", "pca_from_grm"),
+     ("models/pca.py", "write_pca_outputs"), ("models/king.py", "unrelated_set"),
+     ("models/king.py", "unrelated_set_from_pairs"), ("cli/grm.py", "build_parser"),
+     ("cli/grm.py", "_write_spgrm"), ("cli/fvlmm2.py", "build_parser")]
+    + [("cli/gstats.py", f) for f in ("build_parser", "_parse_ldsc_window", "_hist_pdf",
+                                      "_ldsc_manhattan_pdf", "_sample_counts",
+                                      "_row_stats_streamed", "main")]
+    + [("models/combo.py", f) for f in ("ComboSpec", "_split_literal", "build_name_map",
+                                        "parse_interaction_file", "literalize", "xor_dual",
+                                        "make_combos", "bh_adjust")]
+)
+
+
+@pytest.mark.parametrize("rel,name", _KEPT)
+def test_kept_function_matches_original(rel, name):
+    import importlib
+
+    mod = lambda pkg: importlib.import_module(f"{pkg}.{rel[:-3].replace('/', '.')}")
+    original = inspect.getsource(getattr(mod("janusx_tpu"), name))
+    assert inspect.getsource(getattr(mod("janusx_tpu_torch"), name)) == _renamed(original)
 
 
 def test_port_sources_never_import_jax():
