@@ -72,7 +72,9 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
 10. each phase's wall, a JSON line with each kernel's numbers (time,
     plain time, bound and what bounds it, library time; K1's "high" mode
     and its -lowrank shape, K2's "default" mode and its trait axis in both
-    modes beside them; the launches of each path), then the result line;
+    modes beside them; G1's and G2's chain alone and their sweep at every
+    QC'd SNP of the panel; the launches of each path), then the result
+    line;
 11. (run before phase 10's lines) genomic selection on phase 5's panel,
     whose 530 unphenotyped samples are the test set: ``jx gs -BLUP -rrBLUP
     -GBLUPad -cv 5 -effect -save-model`` on test0 (the routes GBLUP(add),
@@ -110,7 +112,30 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     diagonal), RSVD eigenvalues rtol 1e-4 with the PC subspaces within 0.01
     rad, the LD scores rtol 1e-5, and the combo scan at the same basis and
     null λ rtol 1e-6 on beta, se and p; prints each CLI's wall and grm's
-    stage seconds; neither kernel launches.
+    stage seconds; neither kernel launches;
+13. (run before phase 10's lines) the Bayes methods of ``jx gs`` on the
+    first 50,000 SNPs of phase 5's panel (a 50K-array panel): ``jx gs
+    -BLUP -BayesB -cv 5`` and ``jx gs -BayesA -BayesCpi -cv 0`` on test0,
+    400 iterations each; checks 530 finite GEBV rows per method, BayesB's
+    CV pearson at least BLUP's - 0.05, that G1 launched once per iteration
+    of each BayesB / BayesCpi fit and G2 once per iteration of the BayesA
+    fit (and K1, K2 never), with the plain sweeps made to raise while the
+    CLIs run; then G1 (BayesB and BayesCpi) and G2 against their plain
+    versions over 3 sweeps with the same draws at 2,048 SNPs x 1,410
+    (δ identical, β, var_b and r within rtol 1e-4 for G1 and 1e-3 for G2),
+    and CUDA-event times of one sweep of each at the BayesB run's shape
+    (beside its plain version), with n = 32 samples (the chain alone) and
+    at every QC'd SNP of the 600,000; prints each method's fit and CV
+    seconds;
+14. (run before phase 10's lines) population structure on a 1,940 x
+    100,000 panel of three Balding-Nichols populations (F_ST 0.1) with 20 %
+    admixed samples: ``jx fastpop -K 3`` (adam-em; the Q recovers the
+    planted proportions at r >= 0.95 after the best label permutation)
+    and ``jx tree`` (each population's pure samples form a clade free of
+    the other populations' pure samples, by the copied ``_tree_splits``);
+    then the card against the CPU on its first 16,384 SNPs: the IBS
+    distance bit-equal, and fastpop's Q and P at 10 iterations of its
+    default solver within atol 1e-4; no kernel launches.
 """
 
 from __future__ import annotations
@@ -142,6 +167,9 @@ MODELS = ("lm", "lmm", "lmm2", "fvlmm")
 WINDOW = "1:0.1-1.6"  # -bimrange of phase 8: ~29,580 SNPs of chromosome 1
 LOWRANK_Q = 1000  # -lowrank's kinship SNPs in phase 9: rank k = 1000 < n
 HEADER = "chrom\tpos\tsnp\tallele0\tallele1\taf\tmiss\tbeta\tse\tchisq\tpwald"
+# every kernel's wrapper (ops/kernels.py launch_counts), each with no launch
+NO_LAUNCHES = dict.fromkeys(("decode_rotate", "grid_neg_reml_lattice", "gibbs_sweep_marker",
+                             "gibbs_sweep_block_mvn"), 0)
 
 
 class SmokeFailure(RuntimeError):
@@ -180,7 +208,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def ptxas_summary(log: str) -> str:
     """The compiler's resource report (-Xptxas -v) as one entry per kernel
     instance: registers and spill bytes (stores/loads), K2 named by its
-    mode, p and traits per block; then any wgmma warning as printed."""
+    mode, p and traits per block, G1/G2 by whether a CTA's sample slice
+    stays resident; then any wgmma warning as printed."""
     import re
 
     out, warn, name, spill = [], [], "?", "?"
@@ -189,9 +218,12 @@ def ptxas_summary(log: str) -> str:
         if m:
             k1 = re.search(r"decode_rotate_wgmmaILb([01])E", m.group(1))
             k2 = re.search(r"lattice_wgmmaILi(\d)ELi(\d)ELb([01])E", m.group(1))
+            g = re.search(r"gibbs_(marker|block_mvn)_kernelILi\d+ELb([01])E", m.group(1))
             name = (f"K1 {'high' if k1.group(1) == '1' else 'highest'}" if k1 else
                     f"K2 {'default' if k2.group(3) == '1' else 'highest'} "
-                    f"p{k2.group(1)} TT{k2.group(2)}" if k2 else m.group(1))
+                    f"p{k2.group(1)} TT{k2.group(2)}" if k2 else
+                    f"{'G1' if g.group(1) == 'marker' else 'G2'} "
+                    f"{'resident' if g.group(2) == '1' else 'chunked'}" if g else m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"{m.group(1)}/{m.group(2)}"
@@ -574,8 +606,7 @@ def run_cli(argv, phase: str):
     with contextlib.redirect_stdout(buf):
         rc = cli_main(argv)
     wall = time.monotonic() - t1
-    launches = {"decode_rotate": kernels.decode_rotate.launches,
-                "grid_neg_reml_lattice": kernels.grid_neg_reml_lattice.launches}
+    launches = kernels.launch_counts()
     printed = buf.getvalue().strip()
     say(f"{phase} cli: rc={rc} wall={wall:.2f} s :: " + printed.replace("\n", " | "))
     require(rc == 0, f"{phase}: {argv[0]} CLI returned {rc}")
@@ -630,7 +661,9 @@ def run_main_path(d: str, m: int):
     fields = printed.splitlines()[-1].split("\t")
     require(len(fields) == 6 and fields[2].startswith("n=") and fields[4].endswith("s"),
             f"run line {fields}")
-    require(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    require(launches["decode_rotate"] > 0 and launches["grid_neg_reml_lattice"] > 0
+            and launches["gibbs_sweep_marker"] == launches["gibbs_sweep_block_mvn"] == 0,
+            f"launches {launches}: K1 and K2 must launch, the Gibbs sweeps not")
     header, rows = read_tsv(os.path.join(out, "jx.test0.LMM.assoc.tsv"))
     require(header == HEADER, f"TSV header {header!r}")
     require(len(rows) == kept, f"TSV has {len(rows)} rows, {kept} SNPs pass QC")
@@ -735,7 +768,7 @@ def run_trait_level(d: str, prefix: str, Y, rows5, cpu) -> dict:
     # lattice route (lmm, lmm2) in its own superblocks, fvlmm in one
     m = len(rows5)
     sb4 = -(-m // lattice_superblock(N_PHENO, GRID, 2048, traits=4))
-    want = {"decode_rotate": 2 * sb4 + -(-m // (1 << 20)),
+    want = {**NO_LAUNCHES, "decode_rotate": 2 * sb4 + -(-m // (1 << 20)),
             "grid_neg_reml_lattice": 2 * sb4}
     require(launches == want, f"launches {launches}, expected {want} (one per "
                               f"superblock for all {len(TRAITS) - 1} traits)")
@@ -902,7 +935,7 @@ def run_lowrank_sparse(d: str, prefix: str, pheno: str, rows5, qtl_ids, cpu) -> 
             == ["lowrank", "splmm", "splmm-exact"], f"phase 9 runs {list(runs.values())}")
     m = len(rows5)
     supers = -(-m // lattice_superblock(N_PHENO, GRID, 2048))
-    require(launches == {"decode_rotate": supers, "grid_neg_reml_lattice": 0},
+    require(launches == {**NO_LAUNCHES, "decode_rotate": supers},
             f"phase 9 launches {launches}, expected K1 once per -lowrank superblock "
             f"({supers}) and no K2")
     tsv = {}
@@ -1049,7 +1082,7 @@ def run_gs_phase(d: str, prefix: str, pheno: str, gv, cpu, dev, smi: str) -> dic
     from janusx_tpu_torch.utils.cache import load_or_build_grm
 
     t0 = time.monotonic()
-    total = {"decode_rotate": 0, "grid_neg_reml_lattice": 0}
+    total = dict(NO_LAUNCHES)
 
     def cli(argv, what):
         _, wall, launches = run_cli(argv, f"phase 11 {what}")
@@ -1165,8 +1198,8 @@ def run_gs_phase(d: str, prefix: str, pheno: str, gv, cpu, dev, smi: str) -> dic
             genotype=sub, phenotype=pheno, out_prefix=os.path.join(d, f"gs_{plat}", "jxgs"),
             methods=tuple(GS_ROUTES), cv=5, export_effects=True, save_models=True))
         secs[plat] = time.monotonic() - t1
-        total["decode_rotate"] += kernels.decode_rotate.launches
-        total["grid_neg_reml_lattice"] += kernels.grid_neg_reml_lattice.launches
+        for k, v in kernels.launch_counts().items():
+            total[k] += v
     os.environ["JX_TPU_PLATFORM"] = platform
     (rc, sc), (rp, sp) = res["cuda"], res["cpu"]
     worst = {"lambda": 0.0, "gebv": 0.0, "pearson": 0.0, "h2": 0.0}
@@ -1194,8 +1227,7 @@ def run_gs_phase(d: str, prefix: str, pheno: str, gv, cpu, dev, smi: str) -> dic
         f"{worst['lambda']:.3g}, GEBV rel {worst['gebv']:.3g}, CV pearson "
         f"{worst['pearson']:.3g}, HE h2 {worst['h2']:.3g}; run_gs card {secs['cuda']:.2f} s "
         f"({gs_seconds(sc)}), cpu {secs['cpu']:.2f} s ({gs_seconds(sp)})")
-    require(total == {"decode_rotate": 0, "grid_neg_reml_lattice": 0},
-            f"phase 11: a kernel launched on the GS path: {total}")
+    require(total == NO_LAUNCHES, f"phase 11: a kernel launched on the GS path: {total}")
 
     # device times of the GS steps at the run's shapes
     qc = QcParams()
@@ -1256,7 +1288,7 @@ def run_structure_phase(d: str, prefix: str, pheno: str, qtl_ids, cpu, dev) -> d
     from janusx_tpu_torch.models.splmm import sparsify_grm
 
     t0 = time.monotonic()
-    total = {"decode_rotate": 0, "grid_neg_reml_lattice": 0}
+    total = dict(NO_LAUNCHES)
     walls = {}
 
     def cli(argv, what):
@@ -1417,9 +1449,410 @@ def run_structure_phase(d: str, prefix: str, pheno: str, qtl_ids, cpu, dev) -> d
         f"combo p {[f'{float(r[7]):.3g}' for r in rows]}; λ_null {null.lbd:.6g} (the cpu's own "
         f"{own.lbd:.6g}, Δlog10 {abs(own.log10_lbd - null.log10_lbd):.3g}); card vs cpu at "
         f"that λ max rel {e_combo:.3g}; cli {walls['fvlmm2 -i']:.2f} s")
-    require(total == {"decode_rotate": 0, "grid_neg_reml_lattice": 0},
-            f"phase 12: a kernel launched on the structure path: {total}")
+    require(total == NO_LAUNCHES, f"phase 12: a kernel launched on the structure path: {total}")
     say(f"phase 12 done in {time.monotonic() - t0:.2f} s")
+    return total
+
+
+# ------------------------------------------------------------ phase 13
+BAYES_SNPS = 50_000  # a 50K-array panel, the size BGLR-style BayesB users fit
+BAYES_ITERS = 400  # jx gs --bayes-iters default
+
+
+@contextlib.contextmanager
+def plain_sweeps_forbidden():
+    """Make the plain Gibbs sweeps raise while a card path runs, so the
+    path provably goes through G1 and G2 only."""
+    from janusx_tpu_torch.ops import kernels
+
+    saved = kernels.gibbs_sweep_marker_plain, kernels.gibbs_sweep_block_mvn_plain
+
+    def refuse(*a, **k):
+        raise SmokeFailure("a plain Gibbs sweep ran on the card path")
+
+    kernels.gibbs_sweep_marker_plain = kernels.gibbs_sweep_block_mvn_plain = refuse
+    try:
+        yield
+    finally:
+        kernels.gibbs_sweep_marker_plain, kernels.gibbs_sweep_block_mvn_plain = saved
+
+
+def standardized(pg, keep, dev, block: int = 8192):
+    """The analysis samples' standardized (n, m) f32 matrix on the card, as
+    the GS workflow builds its features (gs/workflow.py: centered dosage
+    times 1/sqrt(2 af (1 - af)), 0 where missing), decoded per SNP block."""
+    import torch
+
+    from janusx_tpu_torch.ops import decode
+
+    var = 2.0 * pg.af * (1.0 - pg.af)
+    inv_sd = np.where(var > 0, 1.0 / np.sqrt(np.maximum(var, 1e-300)), 0.0)
+    cols = torch.as_tensor(np.asarray(keep, np.int64), device=dev)
+    Z = torch.empty((len(keep), pg.m), dtype=torch.float32, device=dev)
+    for s in range(0, pg.m, block):
+        e = min(s + block, pg.m)
+        pk = torch.as_tensor(pg.packed[s:e], device=dev)
+        mn = torch.as_tensor(pg.mean[s:e], dtype=torch.float32, device=dev)
+        iv = torch.as_tensor(inv_sd[s:e], dtype=torch.float32, device=dev)
+        Z[:, s:e] = decode.decode_standardized(pk, mn, iv).index_select(1, cols).T
+    return Z
+
+
+def gibbs_state(Zb, x2, y, dev):
+    """A chain's state and scalars at its start, as gs/bayes.py:_chain
+    sets them: (beta, var_b, r, scal)."""
+    import torch
+
+    n = Zb.shape[2]
+    y32 = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    var_y = torch.var(y32)
+    s0_b = var_y * 0.5 / (x2.sum() / n) * 7.0 / 0.5
+    vb_fill = s0_b / 7.0
+    scal = torch.stack([var_y * 0.5, vb_fill, torch.tensor(0.5, device=dev), s0_b, vb_fill])
+    beta = torch.zeros(x2.shape, device=dev)
+    return beta, vb_fill.expand(x2.shape).clone(), y32 - y32.mean(), scal
+
+
+FLIP_MARGIN = 1e-3  # |log-odds - logit(u)| within which a δ may flip by rounding
+
+
+def first_flip(x2_b, vb_in, scal, rn, ru, bk, bp, dk, dp):
+    """The first marker of one block whose δ differs, with its distance to
+    the threshold: the log-odds of inclusion minus logit(u), from the mean
+    that the including side drew (its β minus sqrt(var) rn). Up to that
+    marker both sides held the same state, so the margin is the one both
+    compared against; later markers of the block start from different
+    states. Returns (marker, margin), or None."""
+    diff = (dk != dp).nonzero().flatten()
+    if not len(diff):
+        return None
+    j = int(diff[0])
+    ve, pi = float(scal[0]), float(scal[2])
+    b, vb = float(bk[j] if dk[j] > 0 else bp[j]), float(vb_in[j])
+    var = 1.0 / (float(x2_b[j]) / ve + 1.0 / vb)
+    mean = b - np.sqrt(var) * float(rn[j])
+    logit = np.log(pi) - np.log1p(-pi) + 0.5 * (mean * mean / var + np.log(var) - np.log(vb))
+    u = float(ru[j])
+    return j, float(logit - (np.log(u) - np.log1p(-u)))
+
+
+def check_gibbs(Z, y, dev) -> dict:
+    """G1 (BayesB and BayesCpi) and G2 against their plain versions for one
+    sweep at the main path's shape (the (n, m) matrix Z of the final fit),
+    from a mid-chain state (two kernel sweeps from the chain's start) and
+    the same draws. The kernel runs once over every block (one launch, as
+    the path runs it) and once block by block: the two agree to the bit.
+    Each block's plain sweep starts from the kernel's state before that
+    block, so a difference stays in its block. Held: δ identical but for
+    flips within FLIP_MARGIN of the threshold (each printed with its
+    margin; that block is compared up to its first flip and its residual
+    is not, as the rest of the block starts from other states); β, var_b and the block's residual within rtol 1e-4 (G1) and
+    1e-3 (G2), floors of the same share of each one's largest value.
+    Returns per method (B, Cpi, A) the largest |β| difference, the plain
+    sweep's ms (CUDA events around each block's plain call, summed), the
+    flips and the markers left uncompared."""
+    import torch
+
+    from janusx_tpu_torch.gs.bayes import GeneratorDraws, block_markers
+    from janusx_tpu_torch.ops import kernels
+
+    Zb, Gb, x2 = block_markers(Z)
+    nb, C, _ = Zb.shape
+    out = {k: {"max_abs_err": 0.0, "plain_ms": 0.0, "flips": [], "uncompared": 0}
+           for k in ("B", "Cpi", "A")}
+
+    def close(got, want, rtol, what):
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        require(err <= rtol * top or bool(((got - want).abs()
+                                           <= rtol * want.abs() + rtol * top).all()), what
+                + f" off by {err:.3g}")
+        return err
+
+    for method in ("B", "Cpi", "A"):
+        name = "gibbs_sweep_block_mvn" if method == "A" else "gibbs_sweep_marker"
+        rtol, res = (1e-3 if method == "A" else 1e-4), out[method]
+        draws = GeneratorDraws(17, dev, 5.0)
+        beta, var_b, r, scal = gibbs_state(Zb, x2, y, dev)
+
+        def sweep(fn, bs, state, d):  # one sweep of blocks bs; δ of G1
+            _, rn, ru, rca, rci = d
+            st = [state[0][bs], state[1][bs]]
+            if method == "A":
+                fn(Zb[bs], Gb[bs], x2[bs], *st, rn[bs], rca[bs], state[2], scal)
+                return None
+            return fn(Zb[bs], Gb[bs], x2[bs], *st, rn[bs], ru[bs], rca[bs], rci[bs], state[2],
+                      scal, method)
+
+        kernel = (kernels.gibbs_sweep_block_mvn if method == "A"
+                  else kernels.gibbs_sweep_marker)
+        plain = (kernels.gibbs_sweep_block_mvn_plain if method == "A"
+                 else kernels.gibbs_sweep_marker_plain)
+        state = [beta, var_b, r]
+        for _ in range(2):
+            sweep(kernel, slice(None), state, draws.sweep(nb, C, method))
+        d = draws.sweep(nb, C, method)
+        fused = [t.clone() for t in state]
+        d_fused = sweep(kernel, slice(None), fused, d)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        deltas = []
+        for b in range(nb):
+            bs = slice(b, b + 1)
+            vb_in = state[1][b].clone()
+            side = [state[0].clone(), state[1].clone(), state[2].clone()]
+            dk = sweep(kernel, bs, state, d)
+            t0.record()
+            dp = sweep(plain, bs, side, d)
+            t1.record()
+            torch.cuda.synchronize()
+            res["plain_ms"] += t0.elapsed_time(t1)
+            upto = C
+            if dk is not None:
+                deltas.append(dk)
+                flip = first_flip(x2[b], scal[1].expand(C) if method == "Cpi" else vb_in,
+                                  scal, d[1][b], d[2][b], state[0][b], side[0][b], dk[0],
+                                  dp[0])
+                if flip:
+                    upto, margin = flip
+                    require(abs(margin) <= FLIP_MARGIN,
+                            f"phase 13 G1 {method} block {b} marker {upto}: δ differs at "
+                            f"log-odds {margin:.3g} from the threshold")
+                    res["flips"].append((b, upto, margin))
+                    res["uncompared"] += C - upto
+                require(torch.equal(dk[0, :upto], dp[0, :upto]), "phase 13 G1 δ")
+            what = f"phase 13 {name} {method} block {b}"
+            res["max_abs_err"] = max(res["max_abs_err"], close(
+                state[0][b, :upto], side[0][b, :upto], rtol, what + " beta"))
+            close(state[1][b, :upto], side[1][b, :upto], rtol, what + " var_b")
+            if upto == C:
+                close(state[2], side[2], rtol, what + " r")
+        require(all(torch.equal(a, b) for a, b in zip(fused, state)) and (
+            d_fused is None or torch.equal(d_fused, torch.cat(deltas))),
+            f"phase 13 {name} {method}: one launch over every block differs from the "
+            f"block-by-block launches")
+    return out
+
+
+def gibbs_times(Z, y, dev) -> dict:
+    """CUDA-event ms of one sweep of each kernel on the (n, m) matrix Z,
+    with the bytes and operations of one sweep for the bound."""
+    from janusx_tpu_torch.gs.bayes import GeneratorDraws, block_markers
+    from janusx_tpu_torch.ops import kernels
+
+    Zb, Gb, x2 = block_markers(Z)
+    nb, C, n = Zb.shape
+    draws = GeneratorDraws(5, dev, 5.0)
+    _, rn, ru, rca, rci = draws.sweep(nb, C, "B")
+    beta, var_b, r, scal = gibbs_state(Zb, x2, y, dev)
+    g1 = lambda sweep: sweep(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r, scal, "B")
+    g2 = lambda sweep: sweep(Zb, Gb, x2, beta, var_b, rn, rca, r, scal)
+    m_pad = nb * C
+    # each operand read once and each result written once; the operations:
+    # Z1 r and the residual update (4 m n), the right-hand-side updates of
+    # G1 (2 m C) or the Cholesky, G1 b_old and two solves of G2 per block
+    g1_bytes = 4 * (m_pad * n + m_pad * C + 7 * m_pad + 3 * m_pad + 2 * n)
+    g2_bytes = 4 * (m_pad * n + m_pad * C + 5 * m_pad + 2 * m_pad + 2 * n)
+    g1_flops = 4.0 * m_pad * n + 2.0 * m_pad * C
+    g2_flops = 4.0 * m_pad * n + nb * (2.0 * C ** 3 / 3 + 4.0 * C * C)
+    return {"gibbs_sweep_marker": {
+                "ms": cuda_ms(lambda: g1(kernels.gibbs_sweep_marker), iters=5, warmup=1),
+                "bound": bound(g1_flops, g1_bytes, F32_PEAK)},
+            "gibbs_sweep_block_mvn": {
+                "ms": cuda_ms(lambda: g2(kernels.gibbs_sweep_block_mvn), iters=5, warmup=1),
+                "bound": bound(g2_flops, g2_bytes, F32_PEAK)}}
+
+
+def run_bayes_phase(d: str, prefix: str, pheno: str, cpu, dev, smi: str):
+    """Phase 13: ``jx gs -BLUP -BayesB -cv 5`` and ``-BayesA -BayesCpi
+    -cv 0`` on a BAYES_SNPS-SNP subset of phase 5's panel, G1 and G2 against
+    their plain versions, and their times. Returns (the launches of the
+    phase's CLI runs, the kernels' numbers)."""
+    import torch
+
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+    from janusx_tpu_torch.io.plink import write_plink
+    from janusx_tpu_torch.ops import kernels
+
+    t0 = time.monotonic()
+    raw = load_raw_packed(prefix)
+    sub = os.path.join(d, "bayes")
+    write_plink(sub, raw.packed[:BAYES_SNPS], raw.n_samples,
+                raw.sites.take(np.arange(BAYES_SNPS)), raw.samples)
+    total = dict(NO_LAUNCHES)
+    n_test = N_SAMPLES - N_PHENO
+
+    def cli(argv, what, want):
+        with plain_sweeps_forbidden():
+            _, wall, launches = run_cli(argv, f"phase 13 {what}")
+        require(launches == {**NO_LAUNCHES, **want},
+                f"phase 13 {what}: launches {launches}, expected {want} (one per iteration "
+                f"and fit)")
+        for k, v in launches.items():
+            total[k] += v
+        return wall
+
+    out1, out2 = os.path.join(d, "bayes1"), os.path.join(d, "bayes2")
+    iters = ["--bayes-iters", str(BAYES_ITERS), "--bayes-burnin", str(BAYES_ITERS // 2)]
+    wall1 = cli(["gs", "-bfile", sub, "-p", pheno, "-BLUP", "-BayesB", "-cv", "5", *iters,
+                 "-o", out1], "-BLUP -BayesB -cv 5",
+                {"gibbs_sweep_marker": BAYES_ITERS * 6})
+    wall2 = cli(["gs", "-bfile", sub, "-p", pheno, "-BayesA", "-BayesCpi", "-cv", "0", *iters,
+                 "-o", out2], "-BayesA -BayesCpi -cv 0",
+                {"gibbs_sweep_marker": BAYES_ITERS, "gibbs_sweep_block_mvn": BAYES_ITERS})
+    s1, (ids1, cols1, G1) = read_gs(out1, "test0")
+    s2, (ids2, cols2, G2) = read_gs(out2, "test0")
+    for cols, G, want in ((cols1, G1, ["BLUP", "BayesB"]), (cols2, G2, ["BayesA", "BayesCpi"])):
+        require(cols == want and G.shape == (n_test, len(want)) and bool(np.isfinite(G).all()),
+                f"phase 13 GEBV TSV: columns {cols}, shape {G.shape}")
+    require(ids1 == ids2, "phase 13: the two runs' test samples differ")
+    cv = {mm: s1["traits"]["test0"][mm]["cv"]["pearson"] for mm in ("BLUP", "BayesB")}
+    require(cv["BayesB"] >= cv["BLUP"] - 0.05,
+            f"phase 13 CV pearson BayesB {cv['BayesB']:.4f} < BLUP {cv['BLUP']:.4f} - 0.05")
+    corr = float(np.corrcoef(np.column_stack([G1, G2]).T)[1:, 0].min())
+    say(f"phase 13 jx gs on {s1['m_snps']} QC'd SNPs x {N_PHENO} phenotyped ({n_test} test): "
+        f"CV pearson BLUP {cv['BLUP']:.4f}, BayesB {cv['BayesB']:.4f}; the Bayes test GEBVs "
+        f"correlate with BLUP's at least {corr:.4f}; seconds: {gs_seconds(s1)}; "
+        f"{gs_seconds(s2)}; cli {wall1:.2f} s and {wall2:.2f} s; launches {total}")
+
+    # the kernels against their plain versions at the final fit's shape, and
+    # their times
+    keep, y = cpu["keep"], cpu["y"]
+    Z = standardized(cpu["full"].take_snps(np.arange(s1["m_snps"])), keep, dev)
+    check = check_gibbs(Z, y, dev)
+    for method, c in check.items():
+        say(f"phase 13 {'G2' if method == 'A' else 'G1'} Bayes{method} vs plain, one sweep at m "
+            f"= {s1['m_snps']}, n = {N_PHENO}: max |Δβ| {c['max_abs_err']:.3g}, plain "
+            f"{c['plain_ms']:.1f} ms; δ flips (block, marker, log-odds margin) {c['flips']}, "
+            f"{c['uncompared']} markers uncompared after them")
+    times = gibbs_times(Z, y, dev)
+    chain = gibbs_times(Z[:32], y[:32], dev)  # one CTA: the chain alone
+    del Z
+    torch.cuda.empty_cache()
+    big = gibbs_times(standardized(cpu["full"], keep, dev), y, dev)
+    torch.cuda.empty_cache()
+    for name, t in times.items():
+        t["chain_ms"], t["m_all_ms"] = chain[name]["ms"], big[name]["ms"]
+        t["m_all_bound"] = big[name]["bound"]
+        # G1's row is BayesB's (the sweep timed above); its error covers BayesCpi too
+        c = [check["A"]] if name == "gibbs_sweep_block_mvn" else [check["B"], check["Cpi"]]
+        t["max_abs_err"] = max(x["max_abs_err"] for x in c)
+        t["plain_ms"] = c[0]["plain_ms"]
+        t["delta_flips"] = sum(len(x["flips"]) for x in c)
+        say(f"phase 13 {name} ({smi}): one sweep at m = {s1['m_snps']}, n = {N_PHENO}: "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.1f} ms, bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]}); the chain alone, n = 32: {t['chain_ms']:.4f} ms); at m = "
+            f"{cpu['full'].m}: {t['m_all_ms']:.3f} ms (bound {t['m_all_bound'][0]:.4f} ms)")
+    say(f"phase 13 done in {time.monotonic() - t0:.2f} s")
+    return total, times
+
+
+# ------------------------------------------------------------ phase 14
+POP_SNPS = 100_000  # an LD-pruned ADMIXTURE input's size
+POP_K = 3
+POP_FST = 0.1
+
+
+def write_pop_panel(d: str, seed: int = 20261017):
+    """A PLINK panel of N_SAMPLES samples x POP_SNPS SNPs from POP_K
+    Balding-Nichols populations at F_ST POP_FST (ancestral frequencies
+    U[0.05, 0.95]): 80 % of the samples pure (population j mod K), 20 %
+    admixed with Dirichlet(1) proportions; 1 % missing. Returns (prefix,
+    the planted proportions (n, K), the pure samples' population or -1)."""
+    from janusx_tpu_torch.io import bitcodec
+    from janusx_tpu_torch.io.gdata import SiteInfo
+    from janusx_tpu_torch.io.plink import write_plink
+
+    rng = np.random.default_rng(seed)
+    n, m, K = N_SAMPLES, POP_SNPS, POP_K
+    pop = np.arange(n) % K
+    admixed = rng.random(n) < 0.2
+    Q = np.eye(K)[pop]
+    Q[admixed] = rng.dirichlet(np.ones(K), size=int(admixed.sum()))
+    pop[admixed] = -1
+    a = (1 - POP_FST) / POP_FST
+    packed = np.empty((m, bitcodec.n_bytes(n)), np.uint8)
+    for s in range(0, m, 20_000):
+        e = min(s + 20_000, m)
+        anc = rng.uniform(0.05, 0.95, e - s)[:, None]
+        F = rng.beta(anc * a, (1 - anc) * a, size=(e - s, K))
+        p = (F @ Q.T).astype(np.float32)  # (k, n): each allele drawn at p
+        g = ((rng.random(p.shape, dtype=np.float32) < p).astype(np.uint8)
+             + (rng.random(p.shape, dtype=np.float32) < p))
+        g[rng.random(g.shape, dtype=np.float32) < 0.01] = 3
+        packed[s:e] = bitcodec.pack_codes(g)
+    sites = SiteInfo(chrom=(np.arange(m) * 19 // m + 1).astype(str).astype(object),
+                     pos=np.arange(1, m + 1, dtype=np.int64) * 30,
+                     snp=np.array([f"p{i}" for i in range(m)], object),
+                     allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+    prefix = os.path.join(d, "pops")
+    write_plink(prefix, packed, n, sites, np.array([f"ind{j}" for j in range(n)], object))
+    return prefix, Q, pop
+
+
+def run_pop_phase(d: str, dev) -> dict:
+    """Phase 14: ``jx fastpop -K 3`` and ``jx tree`` on a three-population
+    panel, then the card against the CPU on its first CROSS_SNPS SNPs.
+    Returns the kernel launches (all 0: neither reaches a kernel)."""
+    import itertools
+
+    from janusx_tpu_torch.cli.fastpop import build_parser
+    from janusx_tpu_torch.io.gfreader import prepare_packed
+    from janusx_tpu_torch.io.packed import QcParams
+    from janusx_tpu_torch.models.fastpop import train_admixture
+    from janusx_tpu_torch.models.tree import _tree_splits, ibs_distance
+
+    t0 = time.monotonic()
+    prefix, Q, pop = write_pop_panel(d)
+    say(f"phase 14 panel: {N_SAMPLES} x {POP_SNPS} SNPs, {POP_K} populations at F_ST "
+        f"{POP_FST}, {int((pop < 0).sum())} admixed, written in {time.monotonic() - t0:.2f} s")
+    total = dict(NO_LAUNCHES)
+    out = os.path.join(d, "pop")
+    printed, wall_fp, launches = run_cli(["fastpop", "-bfile", prefix, "-K", str(POP_K),
+                                          "-o", out], "phase 14 fastpop")
+    total.update({k: total[k] + v for k, v in launches.items()})
+    with open(os.path.join(out, f"fastpop.{POP_K}.Q")) as fh:
+        Qh = np.array([[float(v) for v in ln.split()] for ln in fh])
+    require(Qh.shape == Q.shape and bool(np.allclose(Qh.sum(1), 1.0, atol=1e-5)),
+            f"phase 14 .Q shape {Qh.shape}")
+    r_q = max(float(np.corrcoef(Qh[:, list(p)].ravel(), Q.ravel())[0, 1])
+              for p in itertools.permutations(range(POP_K)))
+    require(r_q >= 0.95, f"phase 14 fastpop: Q against the planted proportions r = {r_q:.4f}")
+    printed_t, wall_t, launches = run_cli(["tree", "-bfile", prefix, "-o", out],
+                                          "phase 14 tree")
+    total.update({k: total[k] + v for k, v in launches.items()})
+    with open(os.path.join(out, "jxtree.nwk")) as fh:
+        splits = _tree_splits(fh.read().strip())
+    leaves = {f"ind{j}" for j in range(N_SAMPLES)}
+    clades = []
+    for k in range(POP_K):
+        mine = {f"ind{j}" for j in np.flatnonzero(pop == k)}
+        others = {f"ind{j}" for j in np.flatnonzero((pop >= 0) & (pop != k))}
+        fits = [side for s in splits for side in (s, leaves - s)
+                if mine <= side and not (others & side)]
+        require(fits, f"phase 14 tree: population {k}'s pure samples form no clean clade")
+        clades.append(min(len(s) for s in fits))
+    say(f"phase 14 fastpop -K {POP_K} (adam-em): Q vs planted r = {r_q:.4f} (best label "
+        f"permutation); {printed.splitlines()[-1]}; cli {wall_fp:.2f} s. jx tree: each "
+        f"population's pure samples form a clade free of the others' (smallest such clade "
+        f"{clades} leaves for {[int((pop == k).sum()) for k in range(POP_K)]} pure samples); "
+        f"cli {wall_t:.2f} s")
+
+    # the card against the CPU on the first CROSS_SNPS SNPs
+    args = build_parser().parse_args(["-bfile", prefix, "-K", str(POP_K)])
+    pg = prepare_packed(prefix, QcParams(maf=args.maf, geno=args.geno, het=args.het))
+    pg = pg.take_snps(np.arange(min(CROSS_SNPS, pg.m)))
+    D = {dv: ibs_distance(pg, device=dv) for dv in (dev, "cpu")}
+    require(bool(np.array_equal(D[dev], D["cpu"])), "phase 14: IBS card vs cpu not bit-equal")
+    # the CLI's solver (adam-em); tests/test_torch_cuda.py holds both
+    fits = [train_admixture(pg, POP_K, n_iter=10, solver=args.solver, seed=args.seed,
+                            device=dv) for dv in (dev, "cpu")]
+    dq = float(np.abs(fits[0].Q - fits[1].Q).max())
+    dp = float(np.abs(fits[0].P - fits[1].P).max())
+    require(max(dq, dp) <= 1e-4, f"phase 14 fastpop card vs cpu: max |ΔQ| {dq}, |ΔP| {dp}")
+    say(f"phase 14 card vs cpu on {pg.m} SNPs: IBS bit-equal; fastpop ({args.solver}) at 10 "
+        f"iterations max |ΔQ| {dq:.3g}, |ΔP| {dp:.3g}")
+    require(total == NO_LAUNCHES, f"phase 14: a kernel launched: {total}")
+    say(f"phase 14 done in {time.monotonic() - t0:.2f} s")
     return total
 
 
@@ -1571,6 +2004,12 @@ def main() -> int:
         t0 = time.monotonic()
         paths["structure"] = run_structure_phase(d, prefix, pheno, qtl_ids, cpu, dev)
         walls["structure"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        paths["bayes"], gibbs = run_bayes_phase(d, prefix, pheno, cpu, dev, smi)
+        walls["bayes"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        paths["population"] = run_pop_phase(d, dev)
+        walls["population"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]
@@ -1609,6 +2048,18 @@ def main() -> int:
          "t4_default_library_ms": k2td[3],
          "t4_default_bound_ms": k["k2_bound"][4, "default"][0],
          "launches_by_path": by_path("grid_neg_reml_lattice")},
+        *({"name": name, "route": "cuda", "source": src + "gibbs.cu",
+           "replaces": "janusx_tpu/gs/bayes.py:" + line, "launches": paths["bayes"][name],
+           "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
+           "bound_ms": g["bound"][0], "bound_by": g["bound"][1], "library_ms": None,
+           # the dependency chain alone (n = 32 samples: one CTA, no grid
+           # barrier wait), and one sweep at every QC'd SNP of phase 5's panel
+           "chain_ms": g["chain_ms"], "all_snps_ms": g["m_all_ms"],
+           "all_snps_bound_ms": g["m_all_bound"][0],
+           "delta_flips": g["delta_flips"], "launches_by_path": by_path(name)}
+          for name, line, g in (("gibbs_sweep_marker", "76", gibbs["gibbs_sweep_marker"]),
+                                ("gibbs_sweep_block_mvn", "214",
+                                 gibbs["gibbs_sweep_block_mvn"]))),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 """janusx_tpu_torch: the PyTorch + CUDA (NVIDIA Hopper) port of janusx_tpu.
 
 A second package beside the JAX reference: the same CLI surface, QC rules,
-statistics and TSV output, with each Pallas kernel on the ported path
-rewritten as a hand-written CUDA C++ kernel for sm_90a (csrc/). It imports
-torch, numpy and scipy, never jax. Ported so far: every ``jx gwas`` route
-but the multi-device ``mesh``, and ``jx gs`` (BLUP, GBLUP, rrBLUP exact and
-PCG, GBLUPd/ad, the HE pre-fit, ``-hash``, the TOP bundle, effect and model
-export; not the Bayes methods) with ``jx gspredict``, ``jx grm``, ``jx pca``,
-``jx gstats`` (site/sample tables, LD scores, KING) and ``jx fvlmm2 -i``.
+statistics and TSV output, with each Pallas kernel on the ported path, and
+each sweep of the Bayes samplers, written by hand as a CUDA C++ kernel for
+sm_90a (csrc/). It imports torch, numpy and scipy, never jax. Ported so
+far: every ``jx gwas`` route but the multi-device ``mesh``, and ``jx gs``
+(BLUP, GBLUP, rrBLUP exact and PCG, GBLUPd/ad, the HE pre-fit, ``-hash``,
+the TOP bundle, effect and model export, BayesA/B/Cπ) with ``jx
+gspredict``, ``jx grm``, ``jx pca``, ``jx gstats`` (site/sample tables, LD
+scores, KING), ``jx fvlmm2 -i``, ``jx fastpop`` and ``jx tree``.
 ROADMAP.md lists what remains.
 """
 

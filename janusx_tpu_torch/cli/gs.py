@@ -312,14 +312,8 @@ def main(argv=None) -> int:
         methods = ("BLUP",)
 
     from janusx_tpu_torch import config as _cfg
-    from janusx_tpu_torch.gs.bayes import BAYES_NOT_PORTED
-    from janusx_tpu_torch.gs.workflow import BAYES_METHODS, GsConfig, run_gs
+    from janusx_tpu_torch.gs.workflow import GsConfig, run_gs
 
-    bayes = [mm for mm in methods if mm in BAYES_METHODS]
-    if bayes:
-        # before any genotype read: the workflow would first build the
-        # (n, m) f32 feature matrix the Bayes samplers take
-        raise NotImplementedError(f"{', '.join(bayes)}: {BAYES_NOT_PORTED}")
     dev = _cfg.resolve_device()  # fail before any work when no device fits
     if args.debug:
         import os as _os

@@ -10,13 +10,17 @@ from janusx_tpu_torch import __version__
 
 _MODULES: dict[str, tuple[str, str]] = {
     "gwas": ("janusx_tpu_torch.cli.gwas", "GWAS scans (every jx gwas route but the multi-device mesh)"),
-    "gs": ("janusx_tpu_torch.cli.gs", "Genomic selection: BLUP/GBLUP/rrBLUP (Bayes not yet)"),
+    "gs": ("janusx_tpu_torch.cli.gs", "Genomic selection: BLUP/GBLUP/rrBLUP/Bayes"),
     "grm": ("janusx_tpu_torch.cli.grm", "Genomic relationship matrix"),
     "pca": ("janusx_tpu_torch.cli.pca", "Principal components (eigh or randomized SVD)"),
     "gstats": ("janusx_tpu_torch.cli.gstats", "Per-site / per-sample genotype statistics"),
+    "fastpop": ("janusx_tpu_torch.cli.fastpop", "ADMIXTURE-style ancestry inference"),
+    "tree": ("janusx_tpu_torch.cli.tree", "Neighbor-joining phylogeny from genotypes"),
     "fvlmm2": ("janusx_tpu_torch.cli.fvlmm2", "G-by-E joint interaction scan (= jx gwas -fvlmm2)"),
     "gspredict": ("janusx_tpu_torch.cli.gspredict", "Predict gebv from a saved .jxmodel.npz"),
 }
+
+_ALIASES = {"adamixture": "fastpop"}
 
 
 def _help() -> str:
@@ -34,7 +38,7 @@ def main(argv=None) -> int:
     if argv[0] in ("-V", "--version", "version"):
         print(__version__)
         return 0
-    entry = _MODULES.get(argv[0])
+    entry = _MODULES.get(_ALIASES.get(argv[0], argv[0]))
     if entry is None:
         print(f"module {argv[0]} is not ported to janusx_tpu_torch yet\n\n{_help()}",
               file=sys.stderr)

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the LMM scan, their wrappers and their
-plain-PyTorch versions.
+"""Hand-written Hopper kernels, their wrappers and their plain-PyTorch
+versions.
 
 Two kernels carry the ``jx gwas -lmm`` scan (the JAX package's only two
 ``pl.pallas_call``s, janusx_tpu/ops/pallas_kernels.py):
@@ -12,7 +12,16 @@ Two kernels carry the ``jx gwas -lmm`` scan (the JAX package's only two
   (csrc/lattice.cu; replaces ``grid_neg_reml_lattice``, with the trait axis
   the reference loops over in Python).
 
-Both are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
+Two more carry the Gibbs samplers of ``jx gs -BayesA/-BayesB/-BayesCpi``,
+whose reference is an XLA loop with no Pallas (janusx_tpu/gs/bayes.py), one
+launch per iteration each (csrc/gibbs.cu):
+
+- G1 ``gibbs_sweep_marker``: the per-marker spike-and-slab sweep of
+  BayesB and BayesCpi (``_gibbs``);
+- G2 ``gibbs_sweep_block_mvn``: BayesA's joint draw of each marker block
+  (``_gibbs_blocked_a``).
+
+All are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
 ``build/janusx_tpu_torch/`` (keyed on a hash of the sources and flags) and
 bound with ``ctypes``. A wrapper takes its plain-PyTorch version only for
 tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
@@ -39,7 +48,7 @@ from janusx_tpu_torch.ops.decode import decode_centered
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR.parent / "build" / "janusx_tpu_torch"
-_SOURCES = ("rotate.cu", "lattice.cu")
+_SOURCES = ("rotate.cu", "lattice.cu", "gibbs.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -103,6 +112,10 @@ def _lib() -> ctypes.CDLL:
     lib.jx_decode_rotate.restype = i
     lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.jx_grid_lattice.restype = i
+    lib.jx_gibbs_marker.argtypes = [p] * 14 + [i] * 4 + [p]
+    lib.jx_gibbs_marker.restype = i
+    lib.jx_gibbs_block_mvn.argtypes = [p] * 11 + [i] * 3 + [p]
+    lib.jx_gibbs_block_mvn.restype = i
     return lib
 
 
@@ -427,6 +440,166 @@ def grid_neg_reml_lattice(Gr: torch.Tensor, W: torch.Tensor,
 grid_neg_reml_lattice.launches = 0
 
 
+# ------------------------------------------------- G1 / G2 Gibbs sweeps
+# scal, the sweep's scalars on the device: [var_e, var_slab, pi, s0_b, vb_fill]
+# (vb_fill = s0_b / (df0_b + 2), var_b's value on padding markers)
+GIBBS_MARKER_METHODS = {"B": 1, "Cpi": 2}
+GIBBS_CMAX = 128  # markers per block the kernels take (csrc/gibbs.cu CMAX)
+
+
+def gibbs_sweep_marker_plain(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r, scal,
+                             method: str) -> torch.Tensor:
+    """Plain version of G1: the reference's block scan of ``_gibbs``
+    (janusx_tpu/gs/bayes.py:76-116) for BayesB / BayesCpi, marker by
+    marker. Updates ``beta``, ``var_b`` (BayesB only) and ``r`` in place and
+    returns δ (n_blocks, C)."""
+    var_e, var_slab, pi, s0_b, vb_fill = scal.unbind()
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
+    delta = torch.zeros_like(beta)
+    lp = torch.log(pi) - torch.log1p(-pi)
+    for b in range(Zb.shape[0]):
+        Z1, G1, x21, b_old = Zb[b], Gb[b], x2[b], beta[b].clone()
+        vb_eff = var_b[b] if method == "B" else var_slab.expand_as(x21)
+        rhs0 = Z1 @ r + x21 * b_old
+        # the rhs-independent pieces of each step (bayes.py:88-90), per
+        # marker, and every per-marker operand as a list of 0-d views
+        Cj = x21 / var_e + 1.0 / vb_eff
+        var = 1.0 / Cj
+        vec = zip(*(v.unbind() for v in (rhs0, G1, Cj, var, torch.log(var), torch.log(vb_eff),
+                                         torch.sqrt(var), ru[b], rn[b])))
+        b_new = b_old.clone()
+        for j, (rhs0_j, G1_j, Cj_j, var_j, lv_j, lb_j, sd_j, ru_j, rn_j) in enumerate(vec):
+            # G1[j, j] (b_new[j] - b_old[j]) is 0 here: b_new[j] is not drawn yet
+            mean = (rhs0_j - G1_j @ (b_new - b_old)) / var_e / Cj_j
+            logbf = 0.5 * (mean * mean / var_j + lv_j - lb_j)
+            d = ru_j < torch.sigmoid(lp + logbf)
+            delta[b, j] = d
+            b_new[j] = torch.where(d, mean + sd_j * rn_j, zero)
+        b_new = torch.where(x21 > 0, b_new, zero)
+        r.sub_((b_new - b_old) @ Z1)
+        beta[b] = b_new
+        if method == "B":
+            vb = torch.where(delta[b] > 0, (s0_b + b_new * b_new) / rca[b], s0_b / rci[b])
+            var_b[b] = torch.where(x21 > 0, vb, vb_fill)
+    return delta
+
+
+def gibbs_sweep_block_mvn_plain(Zb, Gb, x2, beta, var_b, z, rchi, r, scal) -> None:
+    """Plain version of G2: the reference's block scan of
+    ``_gibbs_blocked_a`` (janusx_tpu/gs/bayes.py:214-236), one Cholesky and
+    three triangular solves per block. Updates ``beta``, ``var_b`` and ``r``
+    in place."""
+    var_e, _, _, s0_b, vb_fill = scal.unbind()
+    C = Zb.shape[1]
+    eye = torch.eye(C, dtype=torch.float32, device=r.device)
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
+    for b in range(Zb.shape[0]):
+        Z1, G1, x21, b_old = Zb[b], Gb[b], x2[b], beta[b].clone()
+        rhs = Z1 @ r + G1 @ b_old
+        dinv = torch.where(x21 > 0, var_e / torch.clamp_min(var_b[b], 1e-12), 1.0)
+        L = torch.linalg.cholesky(G1 + torch.diag(dinv) + 1e-4 * eye)
+        mean = torch.linalg.solve_triangular(
+            L.T, torch.linalg.solve_triangular(L, rhs[:, None], upper=False),
+            upper=True)[:, 0]
+        noise = torch.sqrt(var_e) * torch.linalg.solve_triangular(
+            L.T, z[b][:, None], upper=True)[:, 0]
+        b_new = torch.where(x21 > 0, mean + noise, zero)
+        r.sub_((b_new - b_old) @ Z1)
+        beta[b] = b_new
+        var_b[b] = torch.where(x21 > 0, (s0_b + b_new * b_new) / rchi[b], vb_fill)
+
+
+def _gibbs_work(C: int, dev) -> torch.Tensor:
+    """The kernels' scratch for the partial Z1·r: two buffers of C floats
+    per CTA, at most one CTA per SM (csrc/gibbs.cu plan)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty(2 * sms * C, dtype=torch.float32, device=dev)
+
+
+def _gibbs_check(Zb, Gb, x2, r, scal, vecs) -> tuple[int, int, int]:
+    nb, C, n = Zb.shape
+    if Gb.shape != (nb, C, C) or r.shape != (n,) or scal.shape != (5,) or any(
+            v.shape != (nb, C) for v in (x2, *vecs)):
+        raise ValueError(f"Gibbs sweep: Zb {tuple(Zb.shape)}, Gb {tuple(Gb.shape)}, "
+                         f"r {tuple(r.shape)}, scal {tuple(scal.shape)}, "
+                         f"per-marker {[tuple(v.shape) for v in (x2, *vecs)]}")
+    if C > GIBBS_CMAX:
+        raise ValueError(f"Gibbs kernels take blocks of at most {GIBBS_CMAX} markers, got {C}")
+    dev = Zb.device
+    for t in (Zb, Gb, x2, r, scal, *vecs):
+        _check(t, "Gibbs operand", torch.float32, t.dim(), dev)
+        if not t.is_contiguous():
+            raise ValueError("Gibbs operands must be contiguous")
+    return nb, C, n
+
+
+def gibbs_sweep_marker(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
+                       beta: torch.Tensor, var_b: torch.Tensor, rn: torch.Tensor,
+                       ru: torch.Tensor, rca: torch.Tensor, rci: torch.Tensor,
+                       r: torch.Tensor, scal: torch.Tensor, method: str) -> torch.Tensor:
+    """One BayesB / BayesCpi Gibbs sweep over every marker block (G1): f32
+    marker rows Zb (n_blocks, C, n), block Grams Gb (n_blocks, C, C), x2 =
+    Σ Zb² (n_blocks, C), the sweep's draws rn, ru, rca, rci (n_blocks, C),
+    the residual r (n,) and ``scal``. Updates beta, var_b (BayesB) and r in
+    place; returns δ (n_blocks, C)."""
+    if method not in GIBBS_MARKER_METHODS:
+        raise ValueError(f"gibbs_sweep_marker method={method!r}: expected one of "
+                         f"{tuple(GIBBS_MARKER_METHODS)}")
+    if Zb.device.type == "cpu":
+        return gibbs_sweep_marker_plain(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r, scal,
+                                        method)
+    nb, C, n = _gibbs_check(Zb, Gb, x2, r, scal, (beta, var_b, rn, ru, rca, rci))
+    dev = Zb.device
+    delta = torch.empty_like(beta)
+    work = _gibbs_work(C, dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().jx_gibbs_marker(
+            Zb.data_ptr(), Gb.data_ptr(), x2.data_ptr(), beta.data_ptr(), var_b.data_ptr(),
+            delta.data_ptr(), rn.data_ptr(), ru.data_ptr(), rca.data_ptr(), rci.data_ptr(),
+            r.data_ptr(), scal.data_ptr(), work.data_ptr(), counter.data_ptr(), nb, C, n,
+            GIBBS_MARKER_METHODS[method], torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "gibbs_sweep_marker")
+    gibbs_sweep_marker.launches += 1
+    return delta
+
+
+gibbs_sweep_marker.launches = 0
+
+
+def gibbs_sweep_block_mvn(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
+                          beta: torch.Tensor, var_b: torch.Tensor, z: torch.Tensor,
+                          rchi: torch.Tensor, r: torch.Tensor, scal: torch.Tensor) -> None:
+    """One blocked BayesA Gibbs sweep (G2): each block of C markers drawn
+    jointly from N(Cb⁻¹ rhs, σe² Cb⁻¹), Cb = G1 + diag(σe²/var_b) + 1e-4 I,
+    from the standard normals z and the χ² draws rchi (n_blocks, C); other
+    operands as gibbs_sweep_marker's. Updates beta, var_b and r in place."""
+    if Zb.device.type == "cpu":
+        return gibbs_sweep_block_mvn_plain(Zb, Gb, x2, beta, var_b, z, rchi, r, scal)
+    nb, C, n = _gibbs_check(Zb, Gb, x2, r, scal, (beta, var_b, z, rchi))
+    dev = Zb.device
+    work = _gibbs_work(C, dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().jx_gibbs_block_mvn(
+            Zb.data_ptr(), Gb.data_ptr(), x2.data_ptr(), beta.data_ptr(), var_b.data_ptr(),
+            z.data_ptr(), rchi.data_ptr(), r.data_ptr(), scal.data_ptr(), work.data_ptr(),
+            counter.data_ptr(), nb, C, n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "gibbs_sweep_block_mvn")
+    gibbs_sweep_block_mvn.launches += 1
+
+
+gibbs_sweep_block_mvn.launches = 0
+
+
 def reset_launches() -> None:
     decode_rotate.launches = 0
     grid_neg_reml_lattice.launches = 0
+    gibbs_sweep_marker.launches = 0
+    gibbs_sweep_block_mvn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by wrapper name."""
+    return {f.__name__: f.launches for f in (decode_rotate, grid_neg_reml_lattice,
+                                             gibbs_sweep_marker, gibbs_sweep_block_mvn)}

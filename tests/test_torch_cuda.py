@@ -25,8 +25,11 @@ g'V^-1 g against the host f64 quad at rtol 2e-4
 stream pass, marker effects, the PCG solve, the signed-hash accumulation,
 the TOP loss with its gradient and Hessian, the GBLUPad AI-REML) and of
 ``jx grm``/``pca``/``gstats``/``fvlmm2 -i`` (a GRM strip, the RSVD pass,
-KING's tile pair, the joint GLS of the combo scan) on the card against
-the same call on the CPU, each at the bound stated at its test.
+KING's tile pair, the joint GLS of the combo scan) and of ``jx fastpop``
+and ``jx tree`` (the admixture fit, the IBS distance) on the card against
+the same call on the CPU, each at the bound stated at its test. The Gibbs
+sweeps of ``jx gs -BayesA/B/Cpi`` (G1, G2) against their plain versions
+with the same draws: δ identical, β within rtol 1e-4 (G1) and 1e-3 (G2).
 """
 
 import numpy as np
@@ -580,3 +583,188 @@ def test_joint_chunk_and_combo_scan_on_card_match_cpu(dev, monkeypatch):
         for k in ("beta_combo_joint", "se_combo_joint", "p_combo_joint", "p_lit1_joint",
                   "p_lit2_joint"):
             np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)
+
+
+def _gibbs_problem(dev, m=2048, n=1410, seed=5, C=128):
+    """A sweep's operands as gs/bayes.py builds them, on the card: Zb, Gb,
+    x2 of a standardized random panel (m SNPs, n samples) with a polygenic
+    trait's residual r, and the chain's starting state and scalars
+    (var_e, var_slab, pi, s0_b, vb_fill)."""
+    rng = np.random.default_rng(seed)
+    g = rng.binomial(2, rng.uniform(0.05, 0.5, m)[:, None], size=(m, n)).astype(np.float32)
+    Z = (g - g.mean(1, keepdims=True)) / g.std(1, keepdims=True)
+    y = Z.T @ rng.normal(0, 0.02, m) + rng.normal(size=n)
+    nb = -(-m // C)
+    Zt = torch.zeros((nb * C, n), device=dev)
+    Zt[:m] = torch.as_tensor(Z, device=dev)
+    Zb = Zt.view(nb, C, n)
+    Gb = torch.bmm(Zb, Zb.transpose(1, 2))
+    x2 = (Zb * Zb).sum(2)
+    r = torch.as_tensor(y - y.mean(), dtype=torch.float32, device=dev)
+    s0_b = 0.5 * float(y.var()) / float(x2.sum() / n) * 7.0
+    scal = torch.tensor([0.5 * y.var(), s0_b / 7.0, 0.5, s0_b, s0_b / 7.0],
+                        dtype=torch.float32, device=dev)
+    return Zb, Gb, x2, r, scal
+
+
+def _gibbs_draws(dev, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    rn, ru = torch.randn(shape, generator=g), torch.rand(shape, generator=g)
+    rca = 2.0 * torch._standard_gamma(torch.full(shape, 3.0), generator=g)
+    rci = 2.0 * torch._standard_gamma(torch.full(shape, 2.5), generator=g)
+    return [t.to(dev) for t in (rn, ru, rca, rci)]
+
+
+@pytest.mark.parametrize("method", ["B", "Cpi"])
+def test_gibbs_sweep_marker_matches_plain(dev, method):
+    """G1 against its plain version (the reference's per-marker loop) over
+    3 sweeps with the same draws at m = 2,048, n = 1,410, each side carrying
+    its own state: δ identical, β within rtol 1e-4 (floor 1e-4 x max|β|:
+    the kernel sums Z1 r over the sample split and keeps the right-hand
+    sides current marker by marker, so f32 sums run in other orders), the
+    residual and var_b likewise; one launch per sweep."""
+    Zb, Gb, x2, r, scal = _gibbs_problem(dev)
+    nb, C, _ = Zb.shape
+    beta = torch.zeros((nb, C), device=dev)
+    var_b = torch.full((nb, C), float(scal[4]), device=dev)
+    state = {"kernel": [beta, var_b, r], "plain": [beta.clone(), var_b.clone(), r.clone()]}
+    kernels.reset_launches()
+    for sweep in range(3):
+        rn, ru, rca, rci = _gibbs_draws(dev, (nb, C), sweep)
+        dk = kernels.gibbs_sweep_marker(Zb, Gb, x2, *state["kernel"][:2], rn, ru, rca, rci,
+                                        state["kernel"][2], scal, method)
+        dp = kernels.gibbs_sweep_marker_plain(Zb, Gb, x2, *state["plain"][:2], rn, ru, rca,
+                                              rci, state["plain"][2], scal, method)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, dp), f"sweep {sweep}: {int((dk != dp).sum())} δ differ"
+        for got, want in zip(state["kernel"], state["plain"]):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert 0 < int(dk.sum()) < dk.numel()
+    assert kernels.gibbs_sweep_marker.launches == 3
+    assert kernels.gibbs_sweep_block_mvn.launches == 0
+
+
+def test_gibbs_sweep_block_mvn_matches_plain(dev):
+    """G2 against its plain version (torch.linalg.cholesky and three
+    triangular solves per block, as the reference) over 3 sweeps with the
+    same draws at m = 2,048, n = 1,410: β, var_b and the residual within
+    rtol 1e-3 (floor 1e-3 x max: the kernel's Cholesky and its two fused
+    solves round in another order); one launch per sweep."""
+    Zb, Gb, x2, r, scal = _gibbs_problem(dev)
+    nb, C, _ = Zb.shape
+    beta = torch.zeros((nb, C), device=dev)
+    var_b = torch.full((nb, C), float(scal[4]), device=dev)
+    state = {"kernel": [beta, var_b, r], "plain": [beta.clone(), var_b.clone(), r.clone()]}
+    kernels.reset_launches()
+    for sweep in range(3):
+        z, _, rchi, _ = _gibbs_draws(dev, (nb, C), sweep)
+        kernels.gibbs_sweep_block_mvn(Zb, Gb, x2, *state["kernel"][:2], z, rchi,
+                                      state["kernel"][2], scal)
+        kernels.gibbs_sweep_block_mvn_plain(Zb, Gb, x2, *state["plain"][:2], z, rchi,
+                                            state["plain"][2], scal)
+        torch.cuda.synchronize()
+        for got, want in zip(state["kernel"], state["plain"]):
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * float(want.abs().max()))
+    assert kernels.gibbs_sweep_block_mvn.launches == 3
+    assert kernels.gibbs_sweep_marker.launches == 0
+
+
+@pytest.mark.parametrize("m,n,C", [(300, 97, 128), (40, 1410, 8), (1000, 5000, 128),
+                                   (256, 41_000, 128), (130, 200_000, 128)])
+def test_gibbs_sweeps_ragged_shapes(dev, m, n, C):
+    """Both kernels at ragged shapes (a last block of padding markers, a
+    last CTA with fewer samples, C < 128, more than one sample per thread
+    of a CTA's slice) and past the samples whose slice fits in shared
+    memory (about 40,000 on 132 SMs: the slice streamed in chunks, a
+    2-sample last chunk at n = 41,000 and 5 chunks a CTA at n = 200,000):
+    δ identical, values within their bounds."""
+    Zb, Gb, x2, r, scal = _gibbs_problem(dev, m=m, n=n, seed=m, C=C)
+    nb = Zb.shape[0]
+    rn, ru, rca, rci = _gibbs_draws(dev, (nb, C), 1)
+    out = {}
+    for name, sweep in (("kernel", kernels.gibbs_sweep_marker),
+                        ("plain", kernels.gibbs_sweep_marker_plain)):
+        st = [torch.full((nb, C), 0.01, device=dev), torch.full((nb, C), float(scal[4]),
+                                                                 device=dev), r.clone()]
+        d = sweep(Zb, Gb, x2, st[0], st[1], rn, ru, rca, rci, st[2], scal, "B")
+        mvn = [torch.zeros((nb, C), device=dev), st[1].clone(), r.clone()]
+        (kernels.gibbs_sweep_block_mvn if name == "kernel"
+         else kernels.gibbs_sweep_block_mvn_plain)(Zb, Gb, x2, mvn[0], mvn[1], rn, rca,
+                                                    mvn[2], scal)
+        out[name] = (d, st, mvn)
+    torch.cuda.synchronize()
+    assert torch.equal(out["kernel"][0], out["plain"][0])
+    for got, want in zip(out["kernel"][1], out["plain"][1]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    for got, want in zip(out["kernel"][2], out["plain"][2]):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * float(want.abs().max()))
+
+
+def test_gibbs_wrapper_raises_when_the_build_fails(dev, monkeypatch):
+    """A CUDA tensor never takes the plain version: with no library to
+    load, the wrapper raises."""
+    Zb, Gb, x2, r, scal = _gibbs_problem(dev, m=64, n=100)
+    nb, C, _ = Zb.shape
+    draws = _gibbs_draws(dev, (nb, C), 0)
+    state = [torch.zeros((nb, C), device=dev), torch.ones((nb, C), device=dev)]
+
+    def no_nvcc():
+        raise RuntimeError("nvcc failed")
+
+    kernels._lib.cache_clear()
+    monkeypatch.setattr(kernels, "build", no_nvcc)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            kernels.gibbs_sweep_marker(Zb, Gb, x2, *state, *draws, r, scal, "B")
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            kernels.gibbs_sweep_block_mvn(Zb, Gb, x2, *state, draws[0], draws[2], r, scal)
+    finally:
+        kernels._lib.cache_clear()
+
+
+def test_bayes_fit_on_card(dev):
+    """bayes_fit on the card: every sweep through G1 or G2 (launches equal
+    the iterations), finite effects, and the generator's draws repeat with
+    the seed."""
+    from janusx_tpu_torch.gs.bayes import bayes_fit
+
+    rng = np.random.default_rng(8)
+    n, m = 300, 700
+    Z = rng.normal(size=(n, m)).astype(np.float32)
+    y = Z @ rng.normal(0, 0.05, m) + rng.normal(size=n)
+    for method, wrapper in (("BayesA", kernels.gibbs_sweep_block_mvn),
+                            ("BayesB", kernels.gibbs_sweep_marker),
+                            ("BayesCpi", kernels.gibbs_sweep_marker)):
+        kernels.reset_launches()
+        b1, mu1, tr = bayes_fit(Z, y, method, n_iter=30, burnin=10, seed=4, device=dev,
+                                return_trace=True)
+        assert wrapper.launches == 30 and sum(kernels.launch_counts().values()) == 30
+        b2, mu2 = bayes_fit(Z, y, method, n_iter=30, burnin=10, seed=4, device=dev)
+        assert np.isfinite(b1).all() and np.isfinite(tr).all() and tr.shape == (30, 2)
+        np.testing.assert_array_equal(b1, b2)
+        assert mu1 == mu2
+
+
+@pytest.mark.parametrize("solver", ["adam-em", "adam"])
+def test_train_admixture_on_card_matches_cpu(dev, solver):
+    """``jx fastpop``'s fit on the card against the CPU with the same seed:
+    Q and P within atol 1e-4 after 10 iterations (f32 sums in another
+    order; the CPU tests hold the CPU to the reference at the same bound)."""
+    from janusx_tpu_torch.models.fastpop import train_admixture
+
+    pg, _, _, _ = _scan_problem(3000, 300, 1)
+    card, cpu = (train_admixture(pg, 3, n_iter=10, solver=solver, seed=2, block=512, device=d)
+                 for d in (dev, "cpu"))
+    assert card.n_iter == cpu.n_iter == 10
+    np.testing.assert_allclose(card.Q, cpu.Q, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card.P, cpu.P, rtol=0, atol=1e-4)
+
+
+def test_ibs_distance_on_card_is_the_cpu_to_the_last_bit(dev):
+    """``jx tree``'s IBS distance: integer counts, exact in f32 with TF32
+    off, so the card equals the CPU bit for bit."""
+    from janusx_tpu_torch.models.tree import ibs_distance
+
+    pg, _, _, _ = _scan_problem(3000, 300, 1)
+    np.testing.assert_array_equal(ibs_distance(pg, block=512, device=dev),
+                                  ibs_distance(pg, block=512, device="cpu"))

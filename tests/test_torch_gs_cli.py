@@ -7,8 +7,7 @@ Bounds: the same routes; test and out-of-fold predictions within rtol
 1e-4; the CV metrics within 1e-4; an HE pre-fit for every trait, h2
 within 1e-4; the TOP weights within 1e-6; the effect TSV and the
 .jxmodel.npz within rtol 1e-4. Then the interfaces: the parser is the
-reference's, the Bayes methods fail before any genotype read, gspredict
-runs through the port's dispatcher, and ``jx gwas`` prints the
+reference's, gspredict runs through the port's dispatcher, and ``jx gwas`` prints the
 reference's run line.
 """
 
@@ -203,24 +202,6 @@ def test_gs_parser_is_the_reference_parser():
 
     assert inspect.getsource(t_parser) == inspect.getsource(j_parser)
     assert inspect.getsource(t_pred) == inspect.getsource(j_pred)
-
-
-@pytest.mark.parametrize("method", ["-BayesA", "-BayesB", "-BayesCpi"])
-def test_gs_bayes_fails_before_reading_genotypes(tmp_path, method, monkeypatch):
-    import janusx_tpu_torch.io.gfreader as gfr
-    from janusx_tpu_torch.cli.main import main as t_main
-
-    def no_read(*a, **k):
-        raise AssertionError("genotypes were read")
-
-    monkeypatch.setattr(gfr, "load_raw_packed", no_read)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_main(["gs", "-bfile", str(tmp_path / "absent"), "-p", str(tmp_path / "absent.pheno"),
-                "-BLUP", method, "-o", str(tmp_path / "out")])
-    from janusx_tpu_torch.gs.bayes import bayes_fit_predict
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bayes_fit_predict(None, method[1:], None, None, None, None, [])
 
 
 def test_gs_without_card_raises(panel, tmp_path, monkeypatch):

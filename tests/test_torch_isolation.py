@@ -39,6 +39,7 @@ COPIES = (
     + ["models/scan_common.py", "models/farmcpu.py", "cli/common.py", "utils/history.py"]
     + [f"gs/{m}.py" for m in ("__init__", "kfold", "metrics", "model_io", "workflow")]
     + ["cli/gspredict.py", "cli/pca.py", "plots/__init__.py", "plots/structure.py"]
+    + ["cli/fastpop.py", "cli/tree.py", "models/mltree.py"]
 )
 
 _IMPORT = re.compile(r"^\s*(from|import)\s+janusx_tpu\b")
@@ -238,6 +239,60 @@ def test_port_structure_runs_without_jax(tmp_path):
         assert f"{mod}_LOADED False" in proc.stdout
 
 
+_BAYES_POP_SLICE = r"""
+import os, sys
+import numpy as np
+from janusx_tpu_torch.io import bitcodec
+from janusx_tpu_torch.io.gdata import SiteInfo
+from janusx_tpu_torch.io.plink import write_plink
+from janusx_tpu_torch.cli.main import main
+
+rng = np.random.default_rng(4)
+n, m = 48, 200
+g = rng.binomial(2, rng.uniform(0.1, 0.5, m)[:, None], size=(m, n)).astype(np.uint8)
+g[:, n // 2:] = rng.binomial(2, rng.uniform(0.1, 0.9, m)[:, None], size=(m, n - n // 2))
+sites = SiteInfo(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
+                 snp=np.array([f"rs{i}" for i in range(m)], object),
+                 allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+d = sys.argv[1]
+write_plink(d + "/toy", bitcodec.pack_codes(g), n, sites,
+            np.array([f"s{j}" for j in range(n)], object))
+y = (g - g.mean(1, keepdims=True)).T @ rng.normal(0, 0.1, m) + rng.normal(size=n)
+with open(d + "/toy.pheno", "w") as fh:
+    fh.write("ID\tt0\n" + "".join(f"s{j}\t{'NA' if j < 6 else v}\n" for j, v in enumerate(y)))
+b = ["-bfile", d + "/toy"]
+assert main(["gs", *b, "-p", d + "/toy.pheno", "-BayesA", "-BayesB", "-BayesCpi", "-cv", "2",
+             "--bayes-iters", "12", "--bayes-burnin", "4", "-save-model", "-o", d + "/b"]) == 0
+assert main(["gspredict", "-model", d + "/b/jxgs.t0.BayesB.jxmodel.npz", *b,
+             "-o", d + "/p"]) == 0
+assert main(["fastpop", *b, "-K", "2", "-cv", "-iter", "8", "-o", d + "/f"]) == 0
+assert main(["adamixture", *b, "-K", "2", "-solver", "adam", "-iter", "8", "-o", d + "/a"]) == 0
+assert main(["tree", *b, "-b", "5", "-nj", "bionj", "-o", d + "/t"]) == 0
+assert main(["tree", *b, "-ml", "-ml-sites", "100", "-o", d + "/m"]) == 0
+for f in ("b/jxgs.t0.gebv.tsv", "p/gspred.gebv.tsv", "f/fastpop.2.Q", "a/fastpop.2.P",
+          "t/jxtree.nwk", "m/jxtree.ml.nwk"):
+    assert os.path.exists(f"{d}/{f}"), f
+print("JAX_LOADED", "jax" in sys.modules)
+print("REFERENCE_LOADED", any(k.split(".")[0] == "janusx_tpu" for k in sys.modules))
+print("MPL_LOADED", "matplotlib" in sys.modules)
+"""
+
+
+def test_port_bayes_fastpop_tree_run_without_jax(tmp_path):
+    """``jx gs -BayesA -BayesB -BayesCpi`` (CV, model export, then ``jx
+    gspredict``), ``jx fastpop`` (both solvers, ``-cv``, the ``adamixture``
+    alias) and ``jx tree`` (``-b``, ``-nj bionj``, ``-ml``) through the
+    port's CLI in a fresh interpreter: no jax, no module of janusx_tpu
+    and no matplotlib loaded."""
+    env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _BAYES_POP_SLICE, str(tmp_path)], env=env,
+                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for mod in ("JAX", "REFERENCE", "MPL"):
+        assert f"{mod}_LOADED False" in proc.stdout
+
+
 # functions that the ported modules keep line for line: (module, name)
 _KEPT = (
     [("models/grm.py", "balanced_part_bounds"), ("models/pca.py", "pca_from_grm"),
@@ -250,6 +305,14 @@ _KEPT = (
     + [("models/combo.py", f) for f in ("ComboSpec", "_split_literal", "build_name_map",
                                         "parse_interaction_file", "literalize", "xor_dual",
                                         "make_combos", "bh_adjust")]
+    + [("models/tree.py", f) for f in ("neighbor_joining", "rapid_neighbor_joining", "upgma",
+                                       "nj_tree", "weighted_pair_counts",
+                                       "weighted_ibs_distance", "weighted_jc_distance",
+                                       "_tree_splits", "bootstrap_support",
+                                       "annotate_split_support", "read_fasta_alignment",
+                                       "bionj", "bionj_stats")]
+    + [("models/fastpop.py", f) for f in ("AdmixtureFit", "cv_error",
+                                          "write_admixture_outputs")]
 )
 
 
