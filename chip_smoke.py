@@ -8,7 +8,8 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     TF32 off (the reference's f32 matmuls are full precision);
  2. build the hand-written kernels from csrc/ and print the build seconds
     and each kernel instance's registers and spill bytes (ptxas -v), K2 by
-    mode, p and traits per block;
+    mode, p and traits per block, while a thread writes phase 5's panel
+    (joined before the first timed launch);
  3. K1 decode+rotate on the card in both modes vs its plain PyTorch
     versions at the main path's launch shape (one resident superblock:
     M = 299,008 SNP rows, n = 1410), at the -lowrank route's launch shape
@@ -87,8 +88,8 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     summing to 1), ``-hash 2048 -BLUP`` on test0 (every QC'd SNP hashed),
     ``jx gspredict`` with the saved rrBLUP model (the test samples within
     1e-3 sd(GEBV) of the GEBV TSV's rrBLUP column), and the first 16,384
-    SNPs through the same GS run on the card and on the CPU (the same
-    routes, λ rel 1e-4, GEBVs rtol 1e-4 / atol 1e-6, CV pearson and HE h2
+    SNPs through the same GS run, with 2 CV folds, on the card and on the
+    CPU (the same routes, λ rel 1e-4, GEBVs rtol 1e-4 / atol 1e-6, CV pearson and HE h2
     within 1e-4); prints each CLI's wall, the run's and each method's
     seconds, and CUDA-event times of one HE stream pass, one marker-effect
     pass and one PCG solve at the run's shapes; neither kernel launches;
@@ -121,8 +122,11 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     of each BayesB / BayesCpi fit and G2 once per iteration of the BayesA
     fit (and K1, K2 never), with the plain sweeps made to raise while the
     CLIs run; then G1 (BayesB and BayesCpi) and G2 against their plain
-    versions over 3 sweeps with the same draws at 2,048 SNPs x 1,410
-    (δ identical, β, var_b and r within rtol 1e-4 for G1 and 1e-3 for G2),
+    versions for one sweep from a mid-chain state with the same draws at
+    the BayesB fit's shape, block by block (δ identical but for flips
+    within 1e-3 of the threshold in log-odds, β, var_b and r within rtol
+    1e-4 for G1 and 1e-3 for G2, the one-launch sweep equal to the
+    block-by-block launches bit for bit),
     and CUDA-event times of one sweep of each at the BayesB run's shape
     (beside its plain version), with n = 32 samples (the chain alone) and
     at every QC'd SNP of the 600,000; prints each method's fit and CV
@@ -131,11 +135,43 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     100,000 panel of three Balding-Nichols populations (F_ST 0.1) with 20 %
     admixed samples: ``jx fastpop -K 3`` (adam-em; the Q recovers the
     planted proportions at r >= 0.95 after the best label permutation)
-    and ``jx tree`` (each population's pure samples form a clade free of
-    the other populations' pure samples, by the copied ``_tree_splits``);
+    and ``jx tree`` on the panel's first 970 samples (each population's
+    pure samples form a clade free of the other populations' pure samples,
+    by the copied ``_tree_splits``);
     then the card against the CPU on its first 16,384 SNPs: the IBS
     distance bit-equal, and fastpop's Q and P at 10 iterations of its
-    default solver within atol 1e-4; no kernel launches.
+    default solver within atol 1e-4; no kernel launches;
+15. (run before phase 10's lines) GARFIELD, WGCNA, the in-memory API and
+    the benchmark CLIs: a trait of an AND of two hom-alt indicators (SNPs
+    on chromosomes 1 and 10, each hom-alt in ~20 % of phase 5's phenotyped
+    samples) through ``jx garfield -depth 2 -beam 64 -perm 100`` at every
+    QC'd SNP (the top rule's indicator correlates r >= 0.9 with the planted
+    rule, p = 1/101), ``-width 256 -grm`` (the planted rule in the top 5)
+    and ``-w 500 -bimrange 1:0.1-1.6`` on the panel's chromosome 1 (the
+    window TSV's layout), each
+    with its stage seconds and no kernel launch; ``garfield_scan`` on the
+    first 16,384 SNPs on the card and on the CPU from one seed (-perm 20:
+    scores and null maxima rtol 1e-5, p-values equal, the same rules off
+    ties) and CUDA-event times of one search at full width and of its
+    parts; WGCNA on a 400 x 5,000 expression matrix of 8 planted modules
+    (cor, pick_soft_threshold, adj, tom, cluster: ARI >= 0.9 over the
+    planted genes, the TOM card vs CPU rtol 1e-5 / atol 1e-6) and cor +
+    tom at 20,000 genes; ASSOC lm/lmm/fvlmm/splmm on the first 50,000 QC'd
+    SNPs with phase 5's GRM (lmm against phase 5's TSV: Δ(-log10 p) <=
+    0.05 and the same top 5; card vs CPU on 4,096 SNPs: lm beta/se rtol
+    1e-6, lmm Δ(-log10 p) <= 5e-3) and GenomicSelection("BayesB") (G1
+    launched once per iteration); ``jx benchmark -repeats 1`` (K1 and K2
+    launched inside lmm_scan and K1 inside fvlmm_scan, G2 400 times per
+    bayesa fit), ``jx gblupbench``, ``jx bayesbench -iters 400 -burnin
+    100`` (G1/G2 launches = iterations x methods) and ``jx garfieldbench
+    --and-het-max 1``, each JSON read back and printed. The first launch
+    of each kernel at each shape inside GenomicSelection, ``jx benchmark``
+    and ``jx bayesbench`` is kept and, after the path, held against the
+    plain version on the same inputs at phases 3, 4 and 13's tolerances
+    (K1 rtol 1e-5 / atol 1e-4; K2 its own mode's cell and λ* bounds, each
+    argmin cell the plain version's or a near-tie within the cell
+    tolerance; G1/G2 one sweep block by block from the launch's state, the
+    launch's result equal to the block-by-block launches bit for bit).
 """
 
 from __future__ import annotations
@@ -147,6 +183,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -356,8 +393,8 @@ def _k2_bounds(what: str, got, want, grid, rots, Gr, own: bool, same_min: float 
     plain version the pattern differs by construction where r'Wr or the
     Schur complement is a near-cancellation that one bf16 pass turns
     negative (at the grid's smallest λ): those cells are counted and the
-    first is printed. Returns (max |err| over cells finite in both,
-    detail)."""
+    first is printed. Without ``rots`` (None) the beta/se check is left
+    out. Returns (max |err| over cells finite in both, detail)."""
     import torch
 
     from janusx_tpu_torch.core.reml import argmin_parabolic, final_stats_f32
@@ -393,7 +430,7 @@ def _k2_bounds(what: str, got, want, grid, rots, Gr, own: bool, same_min: float 
                                   f"{detail}")
     require(bool((dlg <= 2.02 * h).all()), f"{what}: λ* moved > 2.02 spacings; {detail}")
     require(same > 0.5, f"{what}: too few identical argmin cells; {detail}")
-    for t, rot in enumerate(rots):
+    for t, rot in enumerate(rots or ()):
         b_k, se_k, _ = final_stats_f32(rot, Gr, lg_k[t], False)
         b_p, se_p, _ = final_stats_f32(rot, Gr, lg_p[t], False)
         # rtol 2e-3 (tests/test_pallas.py:102-110); a beta that is ~0 against
@@ -647,13 +684,39 @@ def read_head(path: str, k: int):
     return header, [r for r in rows if r != [""]]
 
 
-def run_main_path(d: str, m: int):
-    """Panel -> CLI -> checks. Returns (prefix, pheno, rows, summary,
-    launches, qtl_ids, Y, the genetic values)."""
-    t0 = time.monotonic()
-    prefix, pheno, qtl_ids, kept, Y, gv = write_panel(d, m)
+def write_panel_async(d: str, m: int):
+    """Start write_panel(d, m) on a thread, so that the host writes phase
+    5's panel while nvcc builds the kernels; returns a function that waits
+    for it and returns (write_panel's result, its seconds)."""
+    out = {}
+
+    def run():
+        t0 = time.monotonic()
+        try:
+            out["panel"] = write_panel(d, m)
+        except BaseException as e:  # raised again by the join below
+            out["error"] = e
+        out["s"] = time.monotonic() - t0
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in out:
+            raise out["error"]
+        return out["panel"], out["s"]
+
+    return join
+
+
+def run_main_path(d: str, m: int, panel):
+    """Panel -> CLI -> checks, on ``panel`` = (write_panel's result, its
+    seconds). Returns (prefix, pheno, rows, summary, launches, qtl_ids, Y,
+    the genetic values)."""
+    (prefix, pheno, qtl_ids, kept, Y, gv), secs = panel
     say(f"phase 5 panel: {N_SAMPLES} samples ({N_PHENO} phenotyped) x {m} SNPs "
-        f"written in {time.monotonic() - t0:.2f} s; {kept} SNPs pass QC")
+        f"written in {secs:.2f} s, beside the kernels' build; {kept} SNPs pass QC")
     out = os.path.join(d, "out")
     printed, _, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lmm",
                                     "-force-model", "-n", "0", "-o", out], "phase 5")
@@ -687,7 +750,8 @@ def cross_check(prefix: str, pheno: str, rows, summary) -> dict:
     """The first CROSS_SNPS QC'd SNPs rescanned with the plain versions on
     the CPU, from the same cached GRM and the same eigendecomposition.
     Returns the CPU side (the analysis samples' packed genotypes and basis,
-    the full sample set's packed genotypes) for the later phases' rescans."""
+    the full sample set's packed genotypes and GRM) for the later phases'
+    rescans."""
     from janusx_tpu_torch.core.spectral import eigh_grm
     from janusx_tpu_torch.io.gfreader import load_raw_packed
     from janusx_tpu_torch.io.packed import QcParams
@@ -717,7 +781,7 @@ def cross_check(prefix: str, pheno: str, rows, summary) -> dict:
     say(f"phase 6 cross-check {k} SNPs on cpu: max Δ(-log10 p)={dmax:.3g}, top-5 equal, "
         f"λ_null card={lam_card:.6g} cpu={null.lbd:.6g} (rel {rel:.2g}); "
         f"{time.monotonic() - t0:.2f} s")
-    return dict(keep=keep, pg=pg, head=head, basis=basis, y=y_all[keep, 0], full=full)
+    return dict(keep=keep, pg=pg, head=head, basis=basis, y=y_all[keep, 0], full=full, K=K)
 
 
 def write_traits(prefix: str, Y, cpu) -> tuple:
@@ -1196,7 +1260,7 @@ def run_gs_phase(d: str, prefix: str, pheno: str, gv, cpu, dev, smi: str) -> dic
         t1 = time.monotonic()
         res[plat] = run_gs(GsConfig(
             genotype=sub, phenotype=pheno, out_prefix=os.path.join(d, f"gs_{plat}", "jxgs"),
-            methods=tuple(GS_ROUTES), cv=5, export_effects=True, save_models=True))
+            methods=tuple(GS_ROUTES), cv=2, export_effects=True, save_models=True))
         secs[plat] = time.monotonic() - t1
         for k, v in kernels.launch_counts().items():
             total[k] += v
@@ -1536,32 +1600,43 @@ def first_flip(x2_b, vb_in, scal, rn, ru, bk, bp, dk, dp):
     return j, float(logit - (np.log(u) - np.log1p(-u)))
 
 
-def check_gibbs(Z, y, dev) -> dict:
-    """G1 (BayesB and BayesCpi) and G2 against their plain versions for one
-    sweep at the main path's shape (the (n, m) matrix Z of the final fit),
-    from a mid-chain state (two kernel sweeps from the chain's start) and
-    the same draws. The kernel runs once over every block (one launch, as
-    the path runs it) and once block by block: the two agree to the bit.
-    Each block's plain sweep starts from the kernel's state before that
-    block, so a difference stays in its block. Held: δ identical but for
-    flips within FLIP_MARGIN of the threshold (each printed with its
-    margin; that block is compared up to its first flip and its residual
-    is not, as the rest of the block starts from other states); β, var_b and the block's residual within rtol 1e-4 (G1) and
-    1e-3 (G2), floors of the same share of each one's largest value.
-    Returns per method (B, Cpi, A) the largest |β| difference, the plain
-    sweep's ms (CUDA events around each block's plain call, summed), the
-    flips and the markers left uncompared."""
+def gibbs_sweep(fn, method, Zb, Gb, x2, scal, bs, state, d):
+    """One sweep of G1 or G2 (``fn``: the kernel or its plain version) over
+    the blocks ``bs`` of ``state`` = [beta, var_b, r] with the draws ``d`` =
+    (_, rn, ru, rca, rci) (G2 reads rn as z and rca as rchi); returns G1's
+    δ."""
+    st = [state[0][bs], state[1][bs]]
+    if method == "A":
+        fn(Zb[bs], Gb[bs], x2[bs], *st, d[1][bs], d[3][bs], state[2], scal)
+        return None
+    return fn(Zb[bs], Gb[bs], x2[bs], *st, d[1][bs], d[2][bs], d[3][bs], d[4][bs], state[2],
+              scal, method)
+
+
+def gibbs_blockwise(Zb, Gb, x2, scal, method, state, d, fused, d_fused, what: str) -> dict:
+    """One sweep with the draws ``d`` from ``state`` (advanced in place),
+    the kernel block by block beside its plain version: each block's plain
+    sweep starts from the kernel's state before that block, so a difference
+    stays in its block. Held: δ identical but for flips within FLIP_MARGIN
+    of the threshold (each printed with its margin; that block is compared
+    up to its first flip and its residual is not, as the rest of the block
+    starts from other states); β, var_b and the block's residual within
+    rtol 1e-4 (G1) and 1e-3 (G2), floors of the same share of each one's
+    largest value; and ``fused`` (the state after one launch over every
+    block, with its δ ``d_fused``) equal to the block-by-block launches bit
+    for bit. Returns the largest |β| difference, the plain sweep's ms (CUDA
+    events around each block's plain call, summed), the flips and the
+    markers left uncompared."""
     import torch
 
-    from janusx_tpu_torch.gs.bayes import GeneratorDraws, block_markers
     from janusx_tpu_torch.ops import kernels
 
-    Zb, Gb, x2 = block_markers(Z)
     nb, C, _ = Zb.shape
-    out = {k: {"max_abs_err": 0.0, "plain_ms": 0.0, "flips": [], "uncompared": 0}
-           for k in ("B", "Cpi", "A")}
+    name = "gibbs_sweep_block_mvn" if method == "A" else "gibbs_sweep_marker"
+    rtol = 1e-3 if method == "A" else 1e-4
+    res = {"max_abs_err": 0.0, "plain_ms": 0.0, "flips": [], "uncompared": 0}
 
-    def close(got, want, rtol, what):
+    def close(got, want, what):
         err = float((got - want).abs().max())
         top = float(want.abs().max())
         require(err <= rtol * top or bool(((got - want).abs()
@@ -1569,67 +1644,74 @@ def check_gibbs(Z, y, dev) -> dict:
                 + f" off by {err:.3g}")
         return err
 
+    kernel = getattr(kernels, name)
+    plain = getattr(kernels, name + "_plain")
+    sweep = lambda fn, bs, st: gibbs_sweep(fn, method, Zb, Gb, x2, scal, bs, st, d)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    deltas = []
+    for b in range(nb):
+        bs = slice(b, b + 1)
+        vb_in = state[1][b].clone()
+        side = [state[0].clone(), state[1].clone(), state[2].clone()]
+        dk = sweep(kernel, bs, state)
+        t0.record()
+        dp = sweep(plain, bs, side)
+        t1.record()
+        torch.cuda.synchronize()
+        res["plain_ms"] += t0.elapsed_time(t1)
+        upto = C
+        if dk is not None:
+            deltas.append(dk)
+            flip = first_flip(x2[b], scal[1].expand(C) if method == "Cpi" else vb_in,
+                              scal, d[1][b], d[2][b], state[0][b], side[0][b], dk[0], dp[0])
+            if flip:
+                upto, margin = flip
+                require(abs(margin) <= FLIP_MARGIN,
+                        f"{what} G1 {method} block {b} marker {upto}: δ differs at "
+                        f"log-odds {margin:.3g} from the threshold")
+                res["flips"].append((b, upto, margin))
+                res["uncompared"] += C - upto
+            require(torch.equal(dk[0, :upto], dp[0, :upto]), f"{what} G1 δ")
+        at = f"{what} {name} {method} block {b}"
+        res["max_abs_err"] = max(res["max_abs_err"], close(
+            state[0][b, :upto], side[0][b, :upto], at + " beta"))
+        close(state[1][b, :upto], side[1][b, :upto], at + " var_b")
+        if upto == C:
+            close(state[2], side[2], at + " r")
+    require(all(torch.equal(a, b) for a, b in zip(fused, state)) and (
+        d_fused is None or torch.equal(d_fused, torch.cat(deltas))),
+        f"{what} {name} {method}: one launch over every block differs from the "
+        f"block-by-block launches")
+    return res
+
+
+def check_gibbs(Z, y, dev) -> dict:
+    """G1 (BayesB and BayesCpi) and G2 against their plain versions for one
+    sweep at the main path's shape (the (n, m) matrix Z of the final fit),
+    from a mid-chain state (two kernel sweeps from the chain's start) and
+    the same draws, by gibbs_blockwise; the kernel also runs once over
+    every block (one launch, as the path runs it). Returns
+    gibbs_blockwise's record per method (B, Cpi, A)."""
+    from janusx_tpu_torch.gs.bayes import GeneratorDraws, block_markers
+    from janusx_tpu_torch.ops import kernels
+
+    Zb, Gb, x2 = block_markers(Z)
+    nb, C, _ = Zb.shape
+    out = {}
     for method in ("B", "Cpi", "A"):
-        name = "gibbs_sweep_block_mvn" if method == "A" else "gibbs_sweep_marker"
-        rtol, res = (1e-3 if method == "A" else 1e-4), out[method]
-        draws = GeneratorDraws(17, dev, 5.0)
-        beta, var_b, r, scal = gibbs_state(Zb, x2, y, dev)
-
-        def sweep(fn, bs, state, d):  # one sweep of blocks bs; δ of G1
-            _, rn, ru, rca, rci = d
-            st = [state[0][bs], state[1][bs]]
-            if method == "A":
-                fn(Zb[bs], Gb[bs], x2[bs], *st, rn[bs], rca[bs], state[2], scal)
-                return None
-            return fn(Zb[bs], Gb[bs], x2[bs], *st, rn[bs], ru[bs], rca[bs], rci[bs], state[2],
-                      scal, method)
-
         kernel = (kernels.gibbs_sweep_block_mvn if method == "A"
                   else kernels.gibbs_sweep_marker)
-        plain = (kernels.gibbs_sweep_block_mvn_plain if method == "A"
-                 else kernels.gibbs_sweep_marker_plain)
+        draws = GeneratorDraws(17, dev, 5.0)
+        beta, var_b, r, scal = gibbs_state(Zb, x2, y, dev)
         state = [beta, var_b, r]
         for _ in range(2):
-            sweep(kernel, slice(None), state, draws.sweep(nb, C, method))
+            gibbs_sweep(kernel, method, Zb, Gb, x2, scal, slice(None), state,
+                        draws.sweep(nb, C, method))
         d = draws.sweep(nb, C, method)
         fused = [t.clone() for t in state]
-        d_fused = sweep(kernel, slice(None), fused, d)
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        deltas = []
-        for b in range(nb):
-            bs = slice(b, b + 1)
-            vb_in = state[1][b].clone()
-            side = [state[0].clone(), state[1].clone(), state[2].clone()]
-            dk = sweep(kernel, bs, state, d)
-            t0.record()
-            dp = sweep(plain, bs, side, d)
-            t1.record()
-            torch.cuda.synchronize()
-            res["plain_ms"] += t0.elapsed_time(t1)
-            upto = C
-            if dk is not None:
-                deltas.append(dk)
-                flip = first_flip(x2[b], scal[1].expand(C) if method == "Cpi" else vb_in,
-                                  scal, d[1][b], d[2][b], state[0][b], side[0][b], dk[0],
-                                  dp[0])
-                if flip:
-                    upto, margin = flip
-                    require(abs(margin) <= FLIP_MARGIN,
-                            f"phase 13 G1 {method} block {b} marker {upto}: δ differs at "
-                            f"log-odds {margin:.3g} from the threshold")
-                    res["flips"].append((b, upto, margin))
-                    res["uncompared"] += C - upto
-                require(torch.equal(dk[0, :upto], dp[0, :upto]), "phase 13 G1 δ")
-            what = f"phase 13 {name} {method} block {b}"
-            res["max_abs_err"] = max(res["max_abs_err"], close(
-                state[0][b, :upto], side[0][b, :upto], rtol, what + " beta"))
-            close(state[1][b, :upto], side[1][b, :upto], rtol, what + " var_b")
-            if upto == C:
-                close(state[2], side[2], rtol, what + " r")
-        require(all(torch.equal(a, b) for a, b in zip(fused, state)) and (
-            d_fused is None or torch.equal(d_fused, torch.cat(deltas))),
-            f"phase 13 {name} {method}: one launch over every block differs from the "
-            f"block-by-block launches")
+        d_fused = gibbs_sweep(kernel, method, Zb, Gb, x2, scal, slice(None), fused, d)
+        out[method] = gibbs_blockwise(Zb, Gb, x2, scal, method, state, d, fused, d_fused,
+                                      "phase 13")
     return out
 
 
@@ -1750,6 +1832,7 @@ def run_bayes_phase(d: str, prefix: str, pheno: str, cpu, dev, smi: str):
 POP_SNPS = 100_000  # an LD-pruned ADMIXTURE input's size
 POP_K = 3
 POP_FST = 0.1
+TREE_SAMPLES = 970  # jx tree's leaves: the panel's first half
 
 
 def write_pop_panel(d: str, seed: int = 20261017):
@@ -1796,7 +1879,9 @@ def run_pop_phase(d: str, dev) -> dict:
     import itertools
 
     from janusx_tpu_torch.cli.fastpop import build_parser
-    from janusx_tpu_torch.io.gfreader import prepare_packed
+    from janusx_tpu_torch.io import bitcodec
+    from janusx_tpu_torch.io.gfreader import load_raw_packed, prepare_packed
+    from janusx_tpu_torch.io.plink import write_plink
     from janusx_tpu_torch.io.packed import QcParams
     from janusx_tpu_torch.models.fastpop import train_admixture
     from janusx_tpu_torch.models.tree import _tree_splits, ibs_distance
@@ -1817,16 +1902,22 @@ def run_pop_phase(d: str, dev) -> dict:
     r_q = max(float(np.corrcoef(Qh[:, list(p)].ravel(), Q.ravel())[0, 1])
               for p in itertools.permutations(range(POP_K)))
     require(r_q >= 0.95, f"phase 14 fastpop: Q against the planted proportions r = {r_q:.4f}")
-    printed_t, wall_t, launches = run_cli(["tree", "-bfile", prefix, "-o", out],
-                                          "phase 14 tree")
+    # jx tree on the panel's first TREE_SAMPLES samples: its host NJ is
+    # O(n³), ~100 s at all 1,940, which the smoke's time limit cannot spare
+    raw = load_raw_packed(prefix)
+    sub = os.path.join(d, "pops_tree")
+    write_plink(sub, bitcodec.subset_columns(raw.packed, raw.n_samples, np.arange(TREE_SAMPLES)),
+                TREE_SAMPLES, raw.sites, raw.samples[:TREE_SAMPLES])
+    printed_t, wall_t, launches = run_cli(["tree", "-bfile", sub, "-o", out], "phase 14 tree")
     total.update({k: total[k] + v for k, v in launches.items()})
     with open(os.path.join(out, "jxtree.nwk")) as fh:
         splits = _tree_splits(fh.read().strip())
-    leaves = {f"ind{j}" for j in range(N_SAMPLES)}
+    leaves = {f"ind{j}" for j in range(TREE_SAMPLES)}
+    tpop = pop[:TREE_SAMPLES]
     clades = []
     for k in range(POP_K):
-        mine = {f"ind{j}" for j in np.flatnonzero(pop == k)}
-        others = {f"ind{j}" for j in np.flatnonzero((pop >= 0) & (pop != k))}
+        mine = {f"ind{j}" for j in np.flatnonzero(tpop == k)}
+        others = {f"ind{j}" for j in np.flatnonzero((tpop >= 0) & (tpop != k))}
         fits = [side for s in splits for side in (s, leaves - s)
                 if mine <= side and not (others & side)]
         require(fits, f"phase 14 tree: population {k}'s pure samples form no clean clade")
@@ -1834,8 +1925,8 @@ def run_pop_phase(d: str, dev) -> dict:
     say(f"phase 14 fastpop -K {POP_K} (adam-em): Q vs planted r = {r_q:.4f} (best label "
         f"permutation); {printed.splitlines()[-1]}; cli {wall_fp:.2f} s. jx tree: each "
         f"population's pure samples form a clade free of the others' (smallest such clade "
-        f"{clades} leaves for {[int((pop == k).sum()) for k in range(POP_K)]} pure samples); "
-        f"cli {wall_t:.2f} s")
+        f"{clades} leaves for {[int((tpop == k).sum()) for k in range(POP_K)]} pure samples "
+        f"of the first {TREE_SAMPLES}); cli {wall_t:.2f} s")
 
     # the card against the CPU on the first CROSS_SNPS SNPs
     args = build_parser().parse_args(["-bfile", prefix, "-K", str(POP_K)])
@@ -1856,8 +1947,625 @@ def run_pop_phase(d: str, dev) -> dict:
     return total
 
 
-def check_kernels(dev) -> dict:
-    """Phases 2-4: build, then each kernel against its plain version."""
+# ------------------------------------------------------------ phase 15
+EPI_HOM = 0.2  # the planted markers' hom-alt frequency: the AND is carried by ~4 %
+EPI_PERM = 100
+WGCNA_N, WGCNA_GENES, WGCNA_BIG, WGCNA_MODULES = 400, 5_000, 20_000, 8
+API_SNPS = 50_000  # a 50K array
+API_CROSS = 4_096
+BENCH_ITERS = 400  # bayes_fit's default chain, which jx benchmark's bayesa fits
+
+
+@contextlib.contextmanager
+def probe(targets: dict):
+    """Wrap each function ``targets[name] = (owner, attribute)`` so that its
+    calls, their seconds (the card synchronized before and after) and the
+    kernel launches inside them add up under ``name``; yields those records."""
+    import torch
+
+    from janusx_tpu_torch.ops import kernels
+
+    rec = {name: {"calls": 0, "s": 0.0, "launches": dict(NO_LAUNCHES)} for name in targets}
+    saved = []
+    for name, (owner, attr) in targets.items():
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, _fn=fn, _r=rec[name], **k):
+            torch.cuda.synchronize()
+            before, t0 = kernels.launch_counts(), time.monotonic()
+            try:
+                return _fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                _r["calls"] += 1
+                _r["s"] += time.monotonic() - t0
+                for key, v in kernels.launch_counts().items():
+                    _r["launches"][key] += v - before[key]
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    try:
+        yield rec
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+HELD_PER_KERNEL = 3  # launches kept per kernel and path, the first at each shape
+
+
+class _Held:
+    """A kernel wrapper that, while a path runs, keeps a copy of the
+    arguments and results of its first launch at each shape and mode (at
+    most HELD_PER_KERNEL), for hold_launches(). Its launch count is the
+    wrapper's own: the wrapper counts through its module's name, which
+    then names this object."""
+
+    def __init__(self, fn, kept: list):
+        import inspect
+
+        self.fn, self.kept, self.__name__ = fn, kept, fn.__name__
+        self.sig, self.keys = inspect.signature(fn), set()
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, v: setattr(self.fn, "launches", v))
+
+    def __call__(self, *a, **k):
+        import torch
+
+        args = self.sig.bind(*a, **k)
+        args.apply_defaults()
+        key = tuple(tuple(v.shape) if torch.is_tensor(v) else v
+                    for n, v in args.arguments.items() if not n.endswith("_split"))
+        if (not a[0].is_cuda or key in self.keys
+                or len(self.keys) >= HELD_PER_KERNEL):
+            return self.fn(*a, **k)
+        copy = {n: v.clone() if torch.is_tensor(v) else v for n, v in args.arguments.items()}
+        before = self.fn.launches
+        out = self.fn(*a, **k)
+        if self.fn.launches > before:
+            self.keys.add(key)
+            after = {n: args.arguments[n].clone() for n in ("beta", "var_b", "r")
+                     if n in args.arguments}
+            self.kept.append((self.__name__, copy, None if out is None else out.clone(), after))
+        return out
+
+
+@contextlib.contextmanager
+def held():
+    """Every kernel wrapper replaced by a _Held one while the block runs;
+    yields the list of kept launches (name, arguments, result, the Gibbs
+    state after)."""
+    from janusx_tpu_torch.ops import kernels
+
+    kept, names = [], list(NO_LAUNCHES)
+    saved = [getattr(kernels, n) for n in names]
+    for n, fn in zip(names, saved):
+        setattr(kernels, n, _Held(fn, kept))
+    try:
+        yield kept
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(kernels, n, fn)
+
+
+def hold_launches(kept: list, path: str, dev) -> dict:
+    """Each launch that held() kept, against its plain version on the same
+    inputs, at phases 3, 4 and 13's tolerances: K1 rtol 1e-5 / atol 1e-4;
+    K2 against its own mode's plain version by _k2_bounds (beta/se at λ*
+    need the scan's rotation, which the launch does not see: phase 4 holds
+    them), where each SNP's argmin cell is the plain version's or a near-
+    tie, one whose plain value lies within the cell tolerance (rtol 1e-4 /
+    atol 1e-3) of the plain minimum (jx benchmark's simulated trait leaves
+    ~1.4 % of its SNPs with such flat profiles); G1 and G2 one sweep from the launch's state with its draws, by
+    gibbs_blockwise, the launch's own result equal to the block-by-block
+    launches bit for bit. Prints a line per launch; returns the largest
+    |error| per kernel."""
+    import torch
+
+    from janusx_tpu_torch.core.reml import make_grid
+    from janusx_tpu_torch.ops import kernels
+
+    errs = {}
+    for name, a, out, after in kept:
+        what = f"phase 15 {path} {name}"
+        if name == "decode_rotate":
+            plain = (kernels.decode_rotate_plain if a["prec"] == "highest"
+                     else kernels.decode_rotate_high_plain)
+            want = plain(a["packed"], a["mean"], a["U"])
+            err = (out - want).abs()
+            e = float(err.max())
+            require(bool((err <= 1e-4 + 1e-5 * want.abs()).all()),
+                    f"{what} {a['prec']}: outside rtol 1e-5 / atol 1e-4 (max |err| {e:.3g})")
+            detail = (f"{a['prec']} M={out.shape[0]} n={a['U'].shape[0]} N={out.shape[1]}: "
+                      f"max |err| {e:.3g}")
+            del want, err
+        elif name == "grid_neg_reml_lattice":
+            Gr, SH, p = a["Gr"], a["SH"], a["p"]
+            want = kernels.grid_neg_reml_lattice_plain(Gr, a["W"], a["YX"], SH, p, a["ridge"],
+                                                       a["nf"], a["prec"])
+            T, (B, G) = (1 if SH.dim() == 2 else SH.shape[0]), (Gr.shape[0], a["W"].shape[0])
+            got, want = out.reshape(T, B, G), want.reshape(T, B, G)
+            e, vs = _k2_bounds(f"{what} {a['prec']}", got, want, make_grid(G, dev), None, Gr,
+                               own=True, same_min=0.5)
+            # a SNP whose argmin cell moved: the plain value at the kernel's
+            # cell within the cell tolerance of the plain minimum (a flat
+            # profile's near-tie)
+            low = want.min(-1).values
+            moved = torch.argmin(got, -1) != torch.argmin(want, -1)
+            gap = (want.gather(-1, torch.argmin(got, -1)[..., None])[..., 0] - low)[moved]
+            require(bool((gap <= 1e-3 + 1e-4 * low[moved].abs()).all()),
+                    f"{what}: an argmin cell moved to a cell beyond the cell tolerance of the "
+                    f"plain minimum; {vs}")
+            detail = (f"{a['prec']} T={T} B={B} G={G} n={Gr.shape[1]} p={p}: {vs}; "
+                      f"{int(moved.sum())} argmin cells moved, each to a near-tie (largest gap "
+                      f"{float(gap.max()) if bool(moved.any()) else 0.0:.3g})")
+            del got, want
+        else:
+            method = a.get("method", "A")
+            keys = (("rn", "ru", "rca", "rci") if method != "A" else ("z", None, "rchi", None))
+            d = (None, *(a[x] if x else None for x in keys))
+            state = [a["beta"], a["var_b"], a["r"]]
+            fused = [after["beta"], after["var_b"], after["r"]]
+            res = gibbs_blockwise(a["Zb"], a["Gb"], a["x2"], a["scal"], method, state, d, fused,
+                                  out, what)
+            e = res["max_abs_err"]
+            nb, C, n = a["Zb"].shape
+            detail = (f"Bayes{method} {nb} blocks of {C} x n={n}: max |Δβ| {e:.3g}, δ flips "
+                      f"(block, marker, log-odds margin) {res['flips']}, {res['uncompared']} "
+                      f"markers uncompared after them, the launch equal to the block-by-block "
+                      f"launches")
+        errs[name] = max(errs.get(name, 0.0), e)
+        say(f"{what} vs plain at the path's launch shape, {detail}")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def garfield_targets() -> dict:
+    """The stages of ``jx garfield``, for probe()."""
+    from janusx_tpu_torch.io import gfreader
+    from janusx_tpu_torch.models import garfield, grm
+
+    return {"load": (gfreader, "load_raw_packed"), "qc": (gfreader.RawPacked, "prepare"),
+            "grm": (grm, "grm_from_packed"), "b_build": (garfield, "hom_alt_matrix"),
+            "residualize": (garfield, "_residualize"),
+            "preselect": (garfield, "preselect_features"), "search": (garfield, "_beam_search"),
+            "tsv": (garfield, "write_garfield_tsv")}
+
+
+def stages(rec) -> str:
+    return ", ".join(f"{k}={r['s']:.3f}" + (f" ({r['calls']} calls)" if r["calls"] > 1 else "")
+                     for k, r in rec.items() if r["calls"])
+
+
+def write_epi_pheno(d: str, cpu):
+    """The planted rule: the AND of the hom-alt indicators of two QC'd SNPs,
+    one on chromosome 1 among the first CROSS_SNPS and one on chromosome 10,
+    each with the hom-alt frequency nearest EPI_HOM among the phenotyped
+    samples; the trait is 2 rule + N(0, 0.8²) (tests/test_garfield_algwas.py:
+    11-30). Returns (the phenotype file, the rule on the phenotyped samples,
+    the trait on them, the two SNPs' names)."""
+    pg = cpu["pg"]
+    chrom = pg.sites.chrom.astype(str)
+    lo = int(np.flatnonzero(chrom == "10")[0])
+    picks = []
+    for s, e in ((0, min(CROSS_SNPS, pg.m)), (lo, lo + 20_000)):
+        f = (pg.dosages(s, e) == 2).mean(axis=1)
+        picks.append(s + int(np.argmin(np.abs(f - EPI_HOM))))
+    rule = (pg.dosages(picks[0], picks[0] + 1)[0] == 2) & (pg.dosages(picks[1], picks[1] + 1)[0]
+                                                           == 2)
+    y = 2.0 * rule + np.random.default_rng(15).normal(0.0, 0.8, pg.n)
+    yall = np.full(N_SAMPLES, np.nan)
+    yall[cpu["keep"]] = y
+    path = os.path.join(d, "epi.pheno")
+    with open(path, "wt") as fh:
+        fh.write("ID\tepi\n" + "".join(f"ind{j}\t{'NA' if np.isnan(v) else f'{v:.6f}'}\n"
+                                       for j, v in enumerate(yall)))
+    return path, rule.astype(float), y, [str(pg.sites.snp[i]) for i in picks]
+
+
+def rule_vector(text: str, pg, index: dict) -> np.ndarray:
+    """A rule of a ``jx garfield`` TSV ("snpA AND NOT snpB", ...) evaluated
+    on ``pg``'s samples."""
+    hom = lambda name: pg.dosages(index[name], index[name] + 1)[0] == 2
+    toks = text.split()
+    neg = toks[0] == "NOT"
+    toks = toks[1:] if neg else toks
+    v, i = hom(toks[0]) ^ neg, 1
+    while i < len(toks):
+        op = toks[i]
+        if op == "AND" and toks[i + 1] == "NOT":
+            op, i = "ANDN", i + 1
+        b = hom(toks[i + 1])
+        v = v & b if op == "AND" else v & ~b if op == "ANDN" else v ^ b
+        i += 2
+    return v.astype(float)
+
+
+def same_rules(card, cpu_res, H) -> int:
+    """Scores and permutation maxima rtol 1e-5, the same p-values, and the
+    same rules off ties (a rule whose score lies more than 1e-6 from every
+    other's: the same indicator vector, or its complement for a literal or
+    an XOR, whose complement scores alike). Returns the rules compared."""
+    sc, sh = (np.array([r.score for r in res.rules]) for res in (card, cpu_res))
+    require(sc.shape == sh.shape and bool(np.allclose(sc, sh, rtol=1e-5, atol=0)),
+            f"phase 15 garfield card vs cpu: rule scores differ beyond rtol 1e-5")
+    require(bool(np.allclose(card.perm_max_scores, cpu_res.perm_max_scores, rtol=1e-5, atol=0)),
+            "phase 15 garfield card vs cpu: permutation maxima differ beyond rtol 1e-5")
+    require(bool(np.array_equal(card.pvalues, cpu_res.pvalues)), "phase 15: p-values differ")
+
+    def vec(ru):
+        b = H[ru.snps[0]]
+        v = 1 - b if ru.ops[0] == "NOT" else b
+        for op, s in zip(ru.ops[1:], ru.snps[1:]):
+            v = v & H[s] if op == "AND" else v & (1 - H[s]) if op == "ANDN" else v ^ H[s]
+        return v
+
+    n = 0
+    for i, s in enumerate(sh):
+        if not np.all(np.abs(np.delete(sh, i) - s) > 1e-6 * s):
+            continue
+        a, b = vec(card.rules[i]), vec(cpu_res.rules[i])
+        twin = all(op == "XOR" for op in cpu_res.rules[i].ops[1:])
+        require(bool(np.array_equal(a, b)) or (twin and bool(np.array_equal(a, 1 - b))),
+                f"phase 15 garfield card vs cpu: rule {i} differs: {card.rules[i]} vs "
+                f"{cpu_res.rules[i]}")
+        n += 1
+    require(n > 0, "phase 15 garfield card vs cpu: no rule off ties")
+    return n
+
+
+def garfield_search_times(cpu, y, dev) -> dict:
+    """CUDA-event times at every QC'd SNP of the panel: the B build, the
+    depth-1 pass, one (64 seeds x m) extension with its top-k, one whole
+    search (depth 2, beam 64) and the host's share of it."""
+    import torch
+
+    from janusx_tpu_torch.models import garfield as gf
+
+    pg = cpu["pg"]
+    B = gf.hom_alt_matrix(pg, device=dev)
+    t = gf._residualize(y, None)
+    t2, n = float(t @ t), pg.n
+    tj = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    seeds = B[:64].clone()
+    mark = gf._marker_sums(B, tj)
+    out = dict(
+        m=pg.m,
+        b_build=cuda_ms(lambda: gf.hom_alt_matrix(pg, device=dev), iters=2, warmup=1),
+        depth1=cuda_ms(lambda: gf._single_scores(B, t, t2, "corr", n), iters=3, warmup=1),
+        extension=cuda_ms(lambda: gf._extension_top(seeds, B, tj, t2, float(n), "corr", mark, 5,
+                                                    4), iters=3, warmup=1),
+        search=cuda_ms(lambda: gf._beam_search(B, t, 2, 64, 5), iters=3, warmup=1))
+    del B, seeds
+    torch.cuda.empty_cache()
+    out["host"] = out["search"] - out["depth1"] - out["extension"]
+    # the least the card could take for one extension as it is formulated:
+    # B (f32) read once at 3.35 TB/s against the two f32 products' 2 x 2 S
+    # n m operations at the f32 rate outside the tensor cores (TF32 is off)
+    nm = float(n) * pg.m
+    out["bound"] = bound(2 * 2.0 * 64 * nm, 4.0 * nm, F32_PEAK)
+    # and as an exact tensor-core formulation could: the carrier counts, a
+    # product of 0/1 matrices, on int8 at 1,979 TOP/s; the t-weighted
+    # product as three bf16 pieces of t (K1's split; B is exact in bf16) at
+    # 989 TFLOP/s; B read once as int8
+    tc_ms = (2.0 * 64 * nm / 1979e12 + 3 * 2.0 * 64 * nm / 989e12) * 1e3
+    out["tc_bound"] = max((tc_ms, "operations"), (nm / 3.35e12 * 1e3, "bytes"))
+    return out
+
+
+def run_garfield(d, prefix, cpu, dev, smi) -> dict:
+    """``jx garfield``: whole-genome, -width 256 -grm, and a window scan;
+    then the card against the CPU on the first CROSS_SNPS SNPs and one
+    search's times at full width. Returns the launches of the three CLIs."""
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+    from janusx_tpu_torch.io.plink import write_plink
+    from janusx_tpu_torch.models.garfield import garfield_scan, hom_alt_matrix
+
+    pheno, rule, y, names = write_epi_pheno(d, cpu)
+    pg, keep = cpu["pg"], cpu["keep"]
+    index = {s: i for i, s in enumerate(pg.sites.snp)}
+    total = dict(NO_LAUNCHES)
+    say(f"phase 15 planted rule: {names[0]} AND {names[1]} (hom-alt AND hom-alt), carried by "
+        f"{int(rule.sum())} of {pg.n} phenotyped samples")
+
+    def cli(argv, what, bfile=prefix):
+        with probe(garfield_targets()) as rec:
+            _, wall, launches = run_cli(["garfield", "-bfile", bfile, "-p", pheno, *argv],
+                                        f"phase 15 garfield {what}")
+        require(launches == NO_LAUNCHES, f"phase 15 garfield {what}: a kernel launched: "
+                f"{launches}")
+        for key, v in launches.items():
+            total[key] += v
+        say(f"phase 15 garfield {what}: wall {wall:.2f} s; stages (s): {stages(rec)}")
+        return os.path.join(argv[argv.index("-o") + 1], "garfield.epi.garfield")
+
+    out = cli(["-depth", "2", "-beam", "64", "-perm", str(EPI_PERM), "-o",
+               os.path.join(d, "gf1")], "-depth 2 -beam 64 -perm 100")
+    header, rows = read_tsv(out + ".tsv")
+    require(header == "rule\tdepth\tsupport\tscore\tpperm" and len(rows) == 50,
+            f"phase 15 garfield TSV: {header!r}, {len(rows)} rows")
+    r = float(np.corrcoef(rule_vector(rows[0][0], pg, index), rule)[0, 1])
+    require(r >= 0.9 and abs(float(rows[0][4]) - 1 / (EPI_PERM + 1)) < 1e-6,
+            f"phase 15 garfield top rule {rows[0]}: r = {r:.4f} with the planted rule")
+    say(f"phase 15 garfield whole-genome at {pg.m} QC'd SNPs: top rule '{rows[0][0]}' score "
+        f"{rows[0][3]}, support {rows[0][2]}, p {rows[0][4]}, r = {r:.4f} with the planted rule")
+
+    out = cli(["-width", "256", "-grm", "-o", os.path.join(d, "gf2")], "-width 256 -grm")
+    _, rows = read_tsv(out + ".tsv")
+    rs = [float(np.corrcoef(rule_vector(row[0], pg, index), rule)[0, 1]) for row in rows[:5]]
+    require(max(rs) >= 0.9, f"phase 15 garfield -width 256 -grm: top-5 r {rs}")
+    k = int(np.argmax(rs))
+    say(f"phase 15 garfield -width 256 -grm: the planted rule at rank {k + 1} ('{rows[k][0]}', "
+        f"score {rows[k][3]}, p {rows[k][4]}, r = {rs[k]:.4f}); top-5 r {np.round(rs, 4)}")
+
+    # the window scan on the panel's chromosome 1 alone: the same SNPs pass
+    # the same per-SNP QC, which then spares ~20 s of the whole panel's
+    raw = load_raw_packed(prefix)
+    chr1 = np.flatnonzero(raw.sites.chrom.astype(str) == "1")
+    sub = os.path.join(d, "chr1")
+    write_plink(sub, raw.packed[chr1], raw.n_samples, raw.sites.take(chr1), raw.samples)
+    out = cli(["-w", "500", "-bimrange", WINDOW, "-o", os.path.join(d, "gf3")],
+              f"-w 500 -bimrange {WINDOW} (chromosome 1)", bfile=sub)
+    header, rows = read_tsv(out + ".windows.tsv")
+    require(header == "chrom\tstart\tend\trule\tdepth\tsupport\tscore\tpperm" and rows
+            and all(len(row) == 8 and row[0] == "1" and int(row[2]) - int(row[1]) == 500_000
+                    for row in rows), f"phase 15 window TSV {header!r}, {rows[:2]}")
+    say(f"phase 15 garfield window TSV: {len(rows)} rows over "
+        f"{len({(row[1], row[2]) for row in rows})} windows of 500 kb")
+
+    # the card against the CPU on the first CROSS_SNPS SNPs, from one seed
+    head = cpu["head"]
+    t0 = time.monotonic()
+    res = {str(dv): garfield_scan(head, y, depth=2, beam=64, n_perm=20, seed=0, device=dv)
+           for dv in (dev, "cpu")}
+    H = hom_alt_matrix(head, device="cpu").numpy().astype(np.uint8)
+    n_off = same_rules(res[str(dev)], res["cpu"], H)
+    say(f"phase 15 garfield card vs cpu at {head.m} SNPs, -perm 20: {len(res['cpu'].rules)} rule "
+        f"scores and 20 null maxima within rtol 1e-5, p-values equal, {n_off} rules off ties "
+        f"the same; {time.monotonic() - t0:.2f} s")
+    tm = garfield_search_times(cpu, y, dev)
+    say(f"phase 15 garfield device times ({smi}) at m = {tm['m']}, n = {pg.n}: B build "
+        f"{tm['b_build']:.3f} ms, depth-1 pass {tm['depth1']:.3f} ms, one extension of 64 "
+        f"seeds with its top-k {tm['extension']:.3f} ms (bound of its f32 formulation "
+        f"{tm['bound'][0]:.3f} ms, {tm['bound'][1]}; of an exact tensor-core formulation "
+        f"{tm['tc_bound'][0]:.3f} ms, {tm['tc_bound'][1]}), one search (depth 2, beam 64) "
+        f"{tm['search']:.3f} ms, of it host and transfers {tm['host']:.3f} ms")
+    return total
+
+
+def planted_expression(genes: int, seed: int):
+    """(WGCNA_N, genes) expression: WGCNA_MODULES modules of 300-600 genes
+    (scaled with ``genes`` / WGCNA_GENES), each gene its module's eigengene
+    with loading U[0.8, 0.95] (module membership kME >= 0.8) plus noise;
+    the other genes noise. Returns (expression, labels with -1 for noise)."""
+    rng = np.random.default_rng(seed)
+    scale = genes // WGCNA_GENES
+    sizes = rng.integers(300, 601, WGCNA_MODULES) * scale
+    labels = np.full(genes, -1)
+    labels[:sizes.sum()] = np.repeat(np.arange(WGCNA_MODULES), sizes)
+    labels = labels[rng.permutation(genes)]
+    E = rng.normal(size=(WGCNA_N, WGCNA_MODULES))
+    a = rng.uniform(0.8, 0.95, genes)
+    X = rng.normal(size=(WGCNA_N, genes)) * np.sqrt(1 - a * a)
+    on = labels >= 0
+    X[:, on] += a[on] * E[:, labels[on]]
+    X[:, ~on] = rng.normal(size=(WGCNA_N, int((~on).sum())))
+    return X, labels
+
+
+def adjusted_rand(a, b) -> float:
+    """Adjusted Rand index of two labelings (numpy; no sklearn)."""
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    C = np.zeros((ai.max() + 1, bi.max() + 1))
+    np.add.at(C, (ai, bi), 1)
+    pairs = lambda x: (x * (x - 1) / 2).sum()
+    sa, sb, tot = pairs(C.sum(1)), pairs(C.sum(0)), len(a) * (len(a) - 1) / 2
+    exp = sa * sb / tot
+    return float((pairs(C) - exp) / ((sa + sb) / 2 - exp))
+
+
+def run_wgcna(dev, smi) -> None:
+    """The WGCNA helpers on a planted 400 x 5,000 expression matrix (one
+    blockwiseModules block), the TOM on the card against the CPU, and the
+    cor + TOM seconds at 5,000 and 20,000 genes."""
+    from janusx_tpu_torch.gtools import adj, cluster, cor, pick_soft_threshold, tom
+
+    X, planted = planted_expression(WGCNA_GENES, seed=20261018)
+    t0 = time.monotonic()
+    sim = cor(X)
+    t_cor = time.monotonic() - t0
+    # the soft power: pick_soft_threshold's is printed; the adjacency takes
+    # adj's default 6, because the scale-free fit that ranks the powers
+    # (_scale_free_fit, the reference's, kept line for line) bins the
+    # connectivities by quantile, so p(k) is flat and R² ~ 0 at every power
+    power, table = pick_soft_threshold(sim, range(1, 21))
+    A = adj(sim)
+    t0 = time.monotonic()
+    D = tom(A)
+    t_tom = time.monotonic() - t0
+    labels, info = cluster(D, num_modules=WGCNA_MODULES, return_info=True)
+    on = planted >= 0
+    ari = adjusted_rand(planted[on], labels[on])
+    require(ari >= 0.9, f"phase 15 WGCNA: ARI {ari:.4f} over the planted modules' genes")
+    D_cpu = tom(A, device="cpu")
+    require(bool(np.allclose(D, D_cpu, rtol=1e-5, atol=1e-6)),
+            f"phase 15 WGCNA: TOM card vs cpu max |Δ| {np.abs(D - D_cpu).max():.3g}")
+    say(f"phase 15 WGCNA {WGCNA_N} x {WGCNA_GENES}: pick_soft_threshold power {power} (R² "
+        f"{dict((p, r) for p, r, _ in table)[power]:.3f}; adj at 6), {labels.max()} modules "
+        f"({info['module_method']}), ARI {ari:.4f} over {int(on.sum())} planted genes, TOM "
+        f"card vs cpu max |Δ| {np.abs(D - D_cpu).max():.3g}; cor {t_cor:.3f} s + tom "
+        f"{t_tom:.3f} s ({smi})")
+    del sim, A, D, D_cpu
+    X, _ = planted_expression(WGCNA_BIG, seed=20261019)
+    t0 = time.monotonic()
+    sim = cor(X)
+    t_cor = time.monotonic() - t0
+    A = adj(sim)
+    del sim
+    t0 = time.monotonic()
+    D = tom(A)
+    t_tom = time.monotonic() - t0
+    require(D.shape == (WGCNA_BIG, WGCNA_BIG) and bool(np.isfinite(D[::97]).all()),
+            "phase 15 WGCNA at 20,000 genes: TOM not finite")
+    say(f"phase 15 WGCNA {WGCNA_N} x {WGCNA_BIG}: cor {t_cor:.3f} s + tom {t_tom:.3f} s ({smi})")
+
+
+def run_api(cpu, rows5, dev) -> dict:
+    """ASSOC on the first API_SNPS QC'd SNPs with phase 5's GRM (lmm held to
+    phase 5's TSV), card against CPU on API_CROSS SNPs, and
+    GenomicSelection("BayesB"), whose first G1 launch is held against its
+    plain version. Returns (the launches of the API calls, hold_launches'
+    errors)."""
+    import torch
+
+    from janusx_tpu_torch.api import ASSOC, GenomicSelection
+    from janusx_tpu_torch.ops import kernels
+
+    keep, y = cpu["keep"], cpu["y"]
+    pg = cpu["pg"].take_snps(np.arange(API_SNPS))
+    G = pg.dosages().T.astype(np.float64)
+    G[G < 0] = np.nan
+    K = cpu["K"][np.ix_(keep, keep)]
+    kernels.reset_launches()
+    res, walls = {}, {}
+    for model in ("lm", "lmm", "fvlmm", "splmm"):
+        t0 = time.monotonic()
+        res[model] = ASSOC(model, device=dev).fit(y, K=K)._assoc_arrays(G)
+        walls[model] = time.monotonic() - t0
+        require(bool(np.isfinite(res[model][2]).all()), f"phase 15 ASSOC {model}: p not finite")
+    require([r[2] for r in rows5[:API_SNPS]] == list(pg.sites.snp), "phase 15: SNP rows differ")
+    dmax = agree(res["lmm"][2], [float(r[10]) for r in rows5[:API_SNPS]],
+                 "phase 15 ASSOC lmm vs phase 5's TSV", 0.05)
+    lm_cpu = ASSOC("lm", device="cpu").fit(y, K=K)._assoc_arrays(G[:, :API_CROSS])
+    for got, want, what in zip(res["lm"][:2], lm_cpu[:2], ("beta", "se")):
+        require(bool(np.allclose(got[:API_CROSS], want, rtol=1e-6, atol=0)),
+                f"phase 15 ASSOC lm {what} card vs cpu")
+    lmm_cpu = ASSOC("lmm", device="cpu").fit(y, K=K)._assoc_arrays(G[:, :API_CROSS])
+    d_cc = float(np.abs(np.log10(res["lmm"][2][:API_CROSS]) - np.log10(lmm_cpu[2])).max())
+    require(d_cc <= 5e-3, f"phase 15 ASSOC lmm card vs cpu: max Δ(-log10 p) {d_cc}")
+    say(f"phase 15 ASSOC on {API_SNPS} SNPs x {pg.n}: lmm vs phase 5's TSV max Δ(-log10 p) "
+        f"{dmax:.4g} (bound 0.05), top-5 equal; card vs cpu on {API_CROSS} SNPs: lm beta/se "
+        f"rtol 1e-6, lmm max Δ(-log10 p) {d_cc:.3g}; walls (s): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in walls.items()))
+    ymask = y.copy()
+    ymask[::5] = np.nan
+    t0 = time.monotonic()
+    with held() as kept:
+        gebv = GenomicSelection("BayesB", device=dev).fit(G, ymask).predict()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    require(launches == {**NO_LAUNCHES, "gibbs_sweep_marker": BENCH_ITERS},
+            f"phase 15 GenomicSelection BayesB: launches {launches}")
+    require(gebv.shape == (pg.n,) and bool(np.isfinite(gebv).all()), "phase 15 GS: GEBVs")
+    r = float(np.corrcoef(gebv[::5], y[::5])[0, 1])
+    say(f"phase 15 GenomicSelection('BayesB') on {API_SNPS} SNPs: {pg.n} finite GEBVs, r = "
+        f"{r:.4f} with the {len(y[::5])} masked phenotypes, {launches['gibbs_sweep_marker']} G1 "
+        f"launches; {wall:.2f} s")
+    return launches, hold_launches(kept, "GenomicSelection", dev)
+
+
+def run_benchmarks(d, dev) -> tuple:
+    """``jx benchmark -repeats 1``, ``jx gblupbench``, ``jx bayesbench -iters
+    400 -burnin 100`` and ``jx garfieldbench`` at their defaults; their JSON
+    and the kernels each launched, the launches of ``jx benchmark`` and ``jx
+    bayesbench`` held against their plain versions at the CLI's shapes
+    (hold_launches). Returns (the launches by CLI, the errors by CLI)."""
+    from janusx_tpu_torch.gs import bayes
+    from janusx_tpu_torch.models import fvlmm, lmm
+
+    paths, errs = {}, {}
+    out = os.path.join(d, "bench")
+    with probe({"lmm_scan": (lmm, "lmm_scan"), "fvlmm_scan": (fvlmm, "fvlmm_scan"),
+                "bayes_fit": (bayes, "bayes_fit")}) as rec, held() as kept:
+        _, wall, paths["benchmark"] = run_cli(["benchmark", "-repeats", "1", "-o", out],
+                                              "phase 15 benchmark")
+    with open(os.path.join(out, "bench.benchmark.json")) as fh:
+        js = json.load(fh)
+    mods = [r["module"] for r in js["results"]]
+    require(mods == ["grm", "lmm_scan", "fvlmm_scan", "splmm_scan", "gblup_fit",
+                     "bayesa_fit_400it"], f"phase 15 benchmark modules {mods}")
+    kl, kf, kb = (rec[k]["launches"] for k in ("lmm_scan", "fvlmm_scan", "bayes_fit"))
+    require(kl["decode_rotate"] > 0 and kl["grid_neg_reml_lattice"] > 0
+            and kf["decode_rotate"] > 0, f"phase 15 benchmark: K1/K2 in lmm {kl}, fvlmm {kf}")
+    require(kb == {**NO_LAUNCHES, "gibbs_sweep_block_mvn": BENCH_ITERS * rec["bayes_fit"]["calls"]}
+            and paths["benchmark"]["gibbs_sweep_marker"] == 0,
+            f"phase 15 benchmark: bayesa launches {kb} over {rec['bayes_fit']['calls']} fits")
+    say(f"phase 15 benchmark n={js['n']} m={js['m']}: " + "; ".join(
+        f"{r['module']} {r['seconds']} s" + (f" ({r['rate']} {r['unit']})" if "rate" in r else "")
+        for r in js["results"]) + f"; launches lmm {kl}, fvlmm {kf}, bayes_fit "
+        f"{rec['bayes_fit']['calls']} fits {kb}; cli {wall:.2f} s")
+    errs["benchmark"] = hold_launches(kept, "benchmark", dev)
+    require(set(errs["benchmark"]) == {"decode_rotate", "grid_neg_reml_lattice",
+                                       "gibbs_sweep_block_mvn"},
+            f"phase 15 benchmark: held launches of {sorted(errs['benchmark'])}")
+
+    out = os.path.join(d, "gblupbench")
+    _, wall, paths["gblupbench"] = run_cli(["gblupbench", "-o", out], "phase 15 gblupbench")
+    with open(os.path.join(out, "gblupbench.gblupbench.json")) as fh:
+        js = json.load(fh)
+    require([r["route"] for r in js["routes"]] == ["GBLUP", "rrBLUP-PCG"]
+            and paths["gblupbench"] == NO_LAUNCHES, f"phase 15 gblupbench {js['routes']}")
+    say(f"phase 15 gblupbench n={js['n']} m={js['m']} grm {js['grm_seconds']} s: "
+        + "; ".join(f"{r['route']} cv {r['cv_seconds']} s fit {r['fit_seconds']} s cv_r "
+                    f"{r['cv_pearson']} test_r {r['test_pearson']}" for r in js["routes"])
+        + f"; cli {wall:.2f} s")
+
+    out = os.path.join(d, "bayesbench")
+    with held() as kept:
+        _, wall, paths["bayesbench"] = run_cli(
+            ["bayesbench", "-iters", str(BENCH_ITERS), "-burnin", "100", "-o", out],
+            "phase 15 bayesbench")
+    with open(os.path.join(out, "bayesbench.bayesbench.json")) as fh:
+        js = json.load(fh)
+    want = {**NO_LAUNCHES, "gibbs_sweep_marker": 2 * BENCH_ITERS,
+            "gibbs_sweep_block_mvn": BENCH_ITERS}  # x 1 chain: B and Cpi on G1, A on G2
+    require([r["method"] for r in js["methods"]] == ["BLUP", "BayesA", "BayesB", "BayesCpi"]
+            and paths["bayesbench"] == want, f"phase 15 bayesbench launches "
+            f"{paths['bayesbench']}, expected {want}")
+    say(f"phase 15 bayesbench n={js['n']} m={js['m']} iters={js['iters']}: " + "; ".join(
+        f"{r['method']} fit {r['fit_seconds']} s test_r {r['test_pearson']}"
+        for r in js["methods"]) + f"; launches {paths['bayesbench']}; cli {wall:.2f} s")
+    methods = sorted(a.get("method", "A") for _, a, _, _ in kept)
+    require(methods == ["A", "B", "Cpi"], f"phase 15 bayesbench: held sweeps of {methods}")
+    errs["bayesbench"] = hold_launches(kept, "bayesbench", dev)
+
+    # --and-het-max 1: at its default 0.05 no site of the outbred simulated
+    # panel qualifies as a gate member, and every rep skips its search
+    out = os.path.join(d, "garfieldbench")
+    _, wall, paths["garfieldbench"] = run_cli(["garfieldbench", "--and-het-max", "1", "-o", out],
+                                              "phase 15 garfieldbench")
+    with open(os.path.join(out, "garfieldbench.garfieldbench.json")) as fh:
+        js = json.load(fh)
+    require(len(js["reps"]) == 5 and paths["garfieldbench"] == NO_LAUNCHES,
+            f"phase 15 garfieldbench: {len(js['reps'])} reps")
+    say(f"phase 15 garfieldbench n={js['n']} m={js['m']}: power {js['power']}, validated "
+        f"{js['validated_power']}, search seconds {[r['seconds'] for r in js['reps']]}; "
+        f"cli {wall:.2f} s")
+    return paths, errs
+
+
+def run_epistasis_phase(d, prefix, rows5, cpu, dev, smi) -> tuple:
+    """Phase 15: GARFIELD, WGCNA, the in-memory API and the benchmark CLIs.
+    Returns (the launches by path, the held launches' errors by path)."""
+    t0 = time.monotonic()
+    paths = {"garfield": run_garfield(d, prefix, cpu, dev, smi)}
+    run_wgcna(dev, smi)
+    paths["api"], api_errs = run_api(cpu, rows5, dev)
+    bench, errs = run_benchmarks(d, dev)
+    paths.update(bench)
+    errs["api"] = api_errs
+    say(f"phase 15 done in {time.monotonic() - t0:.2f} s")
+    return paths, errs
+
+
+def check_kernels(dev, join_panel) -> dict:
+    """Phases 2-4: build, then each kernel against its plain version. The
+    phase 5 panel being written beside the build is waited for before the
+    first timed launch (``join_panel``'s result goes into the returned dict
+    as "panel")."""
     from janusx_tpu_torch import config
     from janusx_tpu_torch.models.lmm import lattice_superblock
     from janusx_tpu_torch.ops import kernels
@@ -1865,6 +2573,7 @@ def check_kernels(dev) -> dict:
     so, build_s = kernels.build()
     say(f"phase 2 build: {build_s:.2f} s -> {os.path.relpath(so, ROOT)}; "
         + ptxas_summary(so.with_suffix(".log").read_text()))
+    panel = join_panel()
 
     # the main path launches each kernel once per resident superblock of
     # SNPs; the 2048-row block is the reference's per-block launch shape
@@ -1897,7 +2606,7 @@ def check_kernels(dev) -> dict:
     k1_bytes = lambda N: rows * (-(-n // 4) + 4 + 4 * N) + 4 * n * N
     k2_bytes = lambda T: 4 * (rows * n + GRID * n + (T + 1) * n + T * R * GRID + T * rows * GRID)
     k2_flops = lambda T, passes: 2.0 * (2 + T) * rows * GRID * n * passes
-    return dict(k1_err=k1_err["highest"], k1_ms=k1[0]["highest"][1],
+    return dict(panel=panel, k1_err=k1_err["highest"], k1_ms=k1[0]["highest"][1],
                 k1_plain=k1[0]["highest"][2], k1_lib=k1[0]["library"],
                 k1_bound=bound(2.0 * rows * n * n * 6, k1_bytes(n)),
                 k1_lr_err=k1[1]["highest"][0], k1_lr_ms=k1[1]["highest"][1],
@@ -1979,12 +2688,13 @@ def main() -> int:
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}; TF32 off")
 
-    t0 = time.monotonic()
-    k = check_kernels(dev)
-    walls = {"kernels": time.monotonic() - t0}
     with tempfile.TemporaryDirectory(prefix="jx_smoke_") as d:
         t0 = time.monotonic()
-        prefix, pheno, rows, summary, launches, qtl_ids, Y, gv = run_main_path(d, M_SNPS)
+        k = check_kernels(dev, write_panel_async(d, M_SNPS))
+        walls = {"kernels": time.monotonic() - t0}
+        t0 = time.monotonic()
+        prefix, pheno, rows, summary, launches, qtl_ids, Y, gv = run_main_path(d, M_SNPS,
+                                                                            k["panel"])
         cpu = cross_check(prefix, pheno, rows, summary)
         rescan_default(rows, cpu, dev)
         walls["lmm"] = time.monotonic() - t0
@@ -2010,8 +2720,15 @@ def main() -> int:
         t0 = time.monotonic()
         paths["population"] = run_pop_phase(d, dev)
         walls["population"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        epi_paths, held_errs = run_epistasis_phase(d, prefix, rows, cpu, dev, smi)
+        paths.update(epi_paths)
+        walls["epistasis"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
+    # the largest |error| of the path's own launches against the plain
+    # version (hold_launches), by phase 15's paths that launched the kernel
+    held_by = lambda name: {p: e[name] for p, e in held_errs.items() if name in e}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]
     k2t, k2td = k["k2t"]["highest"], k["k2t"]["default"]
 
@@ -2030,7 +2747,8 @@ def main() -> int:
          "lowrank_max_abs_err": k["k1_lr_err"], "lowrank_ms": k["k1_lr_ms"],
          "lowrank_plain_ms": k["k1_lr_plain"], "lowrank_bound_ms": k["k1_lr_bound"][0],
          "lowrank_bound_by": k["k1_lr_bound"][1], "lowrank_library_ms": k["k1_lr_lib"],
-         "launches_by_path": by_path("decode_rotate")},
+         "launches_by_path": by_path("decode_rotate"),
+         "held_max_abs_err_by_path": held_by("decode_rotate")},
         {"name": "grid_neg_reml_lattice", "route": "cuda", "source": src + "lattice.cu",
          "replaces": ref + "232", "launches": launches["grid_neg_reml_lattice"],
          "max_abs_err": k["k2_err"], "ms": k2[1], "plain_ms": k2[2],
@@ -2047,7 +2765,8 @@ def main() -> int:
          "t4_default_ms": k2td[1], "t4_default_plain_ms": k2td[2],
          "t4_default_library_ms": k2td[3],
          "t4_default_bound_ms": k["k2_bound"][4, "default"][0],
-         "launches_by_path": by_path("grid_neg_reml_lattice")},
+         "launches_by_path": by_path("grid_neg_reml_lattice"),
+         "held_max_abs_err_by_path": held_by("grid_neg_reml_lattice")},
         *({"name": name, "route": "cuda", "source": src + "gibbs.cu",
            "replaces": "janusx_tpu/gs/bayes.py:" + line, "launches": paths["bayes"][name],
            "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
@@ -2056,7 +2775,8 @@ def main() -> int:
            # barrier wait), and one sweep at every QC'd SNP of phase 5's panel
            "chain_ms": g["chain_ms"], "all_snps_ms": g["m_all_ms"],
            "all_snps_bound_ms": g["m_all_bound"][0],
-           "delta_flips": g["delta_flips"], "launches_by_path": by_path(name)}
+           "delta_flips": g["delta_flips"], "launches_by_path": by_path(name),
+           "held_max_abs_err_by_path": held_by(name)}
           for name, line, g in (("gibbs_sweep_marker", "76", gibbs["gibbs_sweep_marker"]),
                                 ("gibbs_sweep_block_mvn", "214",
                                  gibbs["gibbs_sweep_block_mvn"]))),

@@ -8,8 +8,12 @@ far: every ``jx gwas`` route but the multi-device ``mesh``, and ``jx gs``
 (BLUP, GBLUP, rrBLUP exact and PCG, GBLUPd/ad, the HE pre-fit, ``-hash``,
 the TOP bundle, effect and model export, BayesA/B/Cπ) with ``jx
 gspredict``, ``jx grm``, ``jx pca``, ``jx gstats`` (site/sample tables, LD
-scores, KING), ``jx fvlmm2 -i``, ``jx fastpop`` and ``jx tree``.
-ROADMAP.md lists what remains.
+scores, KING), ``jx fvlmm2 -i``, ``jx fastpop``, ``jx tree``, ``jx
+garfield`` (the logic-rule search, B and its scores on the device) with
+``jx postgarfield``, ``jx benchmark`` with ``jx gblupbench``, ``jx
+bayesbench`` and ``jx garfieldbench``, the WGCNA helpers (``gtools``) and
+the in-memory API (``api.ASSOC``, ``api.GenomicSelection``). ROADMAP.md
+lists what remains.
 """
 
 __version__ = "0.1.0"

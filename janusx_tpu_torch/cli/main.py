@@ -1,5 +1,6 @@
 """`jx` dispatcher of the port: ``python -m janusx_tpu_torch.cli.main
-<module> ...``. Only the modules ported so far are listed."""
+<module> ...`` and its sub-entries (``gblupbench``, ``bayesbench``,
+``garfieldbench``). Only the modules ported so far are listed."""
 
 from __future__ import annotations
 
@@ -18,6 +19,19 @@ _MODULES: dict[str, tuple[str, str]] = {
     "tree": ("janusx_tpu_torch.cli.tree", "Neighbor-joining phylogeny from genotypes"),
     "fvlmm2": ("janusx_tpu_torch.cli.fvlmm2", "G-by-E joint interaction scan (= jx gwas -fvlmm2)"),
     "gspredict": ("janusx_tpu_torch.cli.gspredict", "Predict gebv from a saved .jxmodel.npz"),
+    "garfield": ("janusx_tpu_torch.cli.garfield", "Logic-rule (epistasis) association search"),
+    "postgarfield": ("janusx_tpu_torch.cli.postgarfield", "GARFIELD rule plots"),
+    "benchmark": ("janusx_tpu_torch.cli.benchmark", "Time core kernels on simulated data"),
+}
+
+# secondary entry points living inside a module file
+_SUBENTRY = {
+    "gblupbench": ("janusx_tpu_torch.cli.benchmark", "gblupbench_main",
+                   "GBLUP/rrBLUP route timing + accuracy benchmark"),
+    "bayesbench": ("janusx_tpu_torch.cli.benchmark", "bayesbench_main",
+                   "Bayes A/B/Cpi vs BLUP chain benchmark"),
+    "garfieldbench": ("janusx_tpu_torch.cli.benchmark", "garfieldbench_main",
+                      "Planted-epistasis recovery power benchmark"),
 }
 
 _ALIASES = {"adamixture": "fastpop"}
@@ -27,6 +41,7 @@ def _help() -> str:
     lines = [f"janusx_tpu_torch {__version__} — PyTorch/CUDA port of janusx-tpu",
              "", "usage: jx <module> [options]", "", "modules:"]
     lines += [f"  {name:<10} {desc}" for name, (_, desc) in _MODULES.items()]
+    lines += [f"  {name:<10} {desc}" for name, (_, _fn, desc) in _SUBENTRY.items()]
     return "\n".join(lines)
 
 
@@ -38,7 +53,11 @@ def main(argv=None) -> int:
     if argv[0] in ("-V", "--version", "version"):
         print(__version__)
         return 0
-    entry = _MODULES.get(_ALIASES.get(argv[0], argv[0]))
+    name = _ALIASES.get(argv[0], argv[0])
+    if name in _SUBENTRY:
+        modpath, fn, _desc = _SUBENTRY[name]
+        return int(getattr(importlib.import_module(modpath), fn)(argv[1:]) or 0)
+    entry = _MODULES.get(name)
     if entry is None:
         print(f"module {argv[0]} is not ported to janusx_tpu_torch yet\n\n{_help()}",
               file=sys.stderr)

@@ -201,7 +201,11 @@ def grid_shared(rot: RotatedData, grid_lg: torch.Tensor) -> GridShared:
     axy = w64 @ rot.PXy
     ayy = w64 @ rot.Pyy
     Ar = Axx + config.GRAM_RIDGE * torch.eye(p, dtype=f64, device=Axx.device)
-    L = torch.linalg.cholesky(Ar)
+    L, info = torch.linalg.cholesky_ex(Ar)
+    # a grid point whose Ar is not positive definite (an indefinite kinship,
+    # below its most negative eigenvalue) gives NaN as jnp.linalg.cholesky
+    # does, and its lattice cells score +inf
+    L = torch.where((info != 0)[:, None, None], torch.full_like(L, float("nan")), L)
     logdetAr = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
     eyeP = torch.eye(p, dtype=f64, device=Ar.device).expand(G, p, p)
     Ar_inv = torch.cholesky_solve(eyeP, L)

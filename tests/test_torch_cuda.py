@@ -768,3 +768,128 @@ def test_ibs_distance_on_card_is_the_cpu_to_the_last_bit(dev):
     pg, _, _, _ = _scan_problem(3000, 300, 1)
     np.testing.assert_array_equal(ibs_distance(pg, block=512, device=dev),
                                   ibs_distance(pg, block=512, device="cpu"))
+
+
+def _garfield_problem(m, n):
+    """A packed panel with 2 % missing calls at an n that is not a multiple
+    of 4, and a trait carrying an AND of two markers' hom-alt indicators."""
+    from janusx_tpu_torch.io.gdata import GenotypeData, SiteInfo
+    from janusx_tpu_torch.io.packed import QcParams, pack_genotypes
+
+    rng = np.random.default_rng(12)
+    g = rng.binomial(2, rng.uniform(0.25, 0.6, m)[:, None], size=(m, n)).astype(np.int8)
+    g[rng.random((m, n)) < 0.02] = -1
+    site = dict(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1) * 10,
+                snp=np.array([f"rs{i}" for i in range(m)], object),
+                allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+    pg = pack_genotypes(GenotypeData(g, SiteInfo(**site), np.array(
+        [f"i{j}" for j in range(n)], object)), QcParams(maf=0.05, geno=0.1))
+    d = pg.dosages()
+    y = 2.0 * ((d[10] == 2) & (d[40] == 2)) + rng.normal(size=n) * 0.8
+    return pg, y
+
+
+def test_garfield_hom_alt_matrix_on_card(dev):
+    """B built on the card from the packed codes equals the host decode."""
+    from janusx_tpu_torch.models.garfield import hom_alt_matrix
+
+    pg, _ = _garfield_problem(3000, 1410 - 3)
+    B = hom_alt_matrix(pg, device=dev)
+    assert B.device == torch.device(dev)
+    np.testing.assert_array_equal(B.cpu().numpy(), (pg.dosages() == 2).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", ["corr", "mcc"])
+def test_garfield_extensions_on_card_match_cpu(dev, mode):
+    """The extension scores and each (seed, op)'s top-k at m = 20,000 on the
+    card against the same call on the CPU: supports exact, scores rtol 1e-5,
+    the same top-k indices wherever the k-th and (k+1)-th scores are more
+    than 1e-6 apart (relative)."""
+    from janusx_tpu_torch.models import garfield as gf
+
+    rng = np.random.default_rng(3)
+    m, n, S, k = 20_000, 1410, 64, 4
+    B = (rng.random((m, n)) < 0.2).astype(np.float32)
+    seeds = (rng.random((S, n)) < 0.3).astype(np.float32)
+    t = rng.normal(size=n) if mode == "corr" else (rng.random(n) < 0.3).astype(float)
+    t2sum = float(t @ t) if mode == "corr" else float(t.sum())
+    out = {}
+    for d in (dev, "cpu"):
+        Bd, td = torch.as_tensor(B, device=d), torch.as_tensor(t, dtype=torch.float32, device=d)
+        sd = torch.as_tensor(seeds, device=d)
+        mark = gf._marker_sums(Bd, td)
+        ext = gf._extension_scores(sd, Bd, td, t2sum, float(n), mode, mark)
+        top = gf._extension_top(sd, Bd, td, t2sum, float(n), mode, mark, 5, k + 1)
+        out[str(d)] = ({op: (s.cpu().numpy(), c.cpu().numpy()) for op, (s, c) in ext.items()},
+                       top)
+    (ec, (sc, ic)), (eh, (sh, ih)) = out[str(dev)], out["cpu"]
+    for op in gf._OPS:
+        np.testing.assert_array_equal(ec[op][1], eh[op][1])
+        np.testing.assert_allclose(ec[op][0], eh[op][0], rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(sc, sh, rtol=1e-5)
+    clear = np.abs(sh[..., k - 1] - sh[..., k]) > 1e-6 * np.abs(sh[..., k - 1])
+    np.testing.assert_array_equal(np.sort(ic[..., :k], -1)[clear], np.sort(ih[..., :k], -1)[clear])
+    assert clear.mean() > 0.5
+
+
+def test_garfield_scan_on_card_matches_cpu(dev):
+    """One ``garfield_scan`` (depth 2, beam 64, 10 permutations) on the card
+    and on the CPU from the same seed: rule scores and permutation maxima
+    rtol 1e-5, the same p-values, the same rules off ties (within 1e-6): the
+    same indicator vector ("NOT a AND NOT b" is "NOT b AND NOT a"), or its
+    complement for a literal or an XOR, which scores alike."""
+    from janusx_tpu_torch.models.garfield import garfield_scan
+
+    pg, y = _garfield_problem(3000, 1410 - 3)
+    card, cpu = (garfield_scan(pg, y, depth=2, beam=64, n_perm=10, seed=1, device=d)
+                 for d in (dev, "cpu"))
+    sc, sh = (np.array([r.score for r in res.rules]) for res in (card, cpu))
+    np.testing.assert_allclose(sc, sh, rtol=1e-5)
+    np.testing.assert_allclose(card.perm_max_scores, cpu.perm_max_scores, rtol=1e-5)
+    np.testing.assert_array_equal(card.pvalues, cpu.pvalues)
+    H = (pg.dosages() == 2).astype(np.uint8)
+
+    def vec(ru):
+        v = 1 - H[ru.snps[0]] if ru.ops[0] == "NOT" else H[ru.snps[0]]
+        for op, j in zip(ru.ops[1:], ru.snps[1:]):
+            v = v & H[j] if op == "AND" else v & (1 - H[j]) if op == "ANDN" else v ^ H[j]
+        return v
+
+    n_off = 0
+    for i, s in enumerate(sh):
+        if np.all(np.abs(np.delete(sh, i) - s) > 1e-6 * s):
+            a, b = vec(card.rules[i]), vec(cpu.rules[i])
+            twin = all(op == "XOR" for op in cpu.rules[i].ops[1:])
+            assert np.array_equal(a, b) or (twin and np.array_equal(a, 1 - b)), (
+                card.rules[i], cpu.rules[i])
+            n_off += 1
+    assert n_off > 0 and {10, 40} == set(cpu.rules[0].snps)
+
+
+def test_tom_on_card_matches_cpu(dev):
+    """The WGCNA correlation and TOM on the card against the CPU: rtol 1e-5
+    / atol 1e-6 at 2,000 genes."""
+    from janusx_tpu_torch.gtools.wgcna import _device_corr, tom
+
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(400, 8))[:, rng.integers(0, 8, 2000)] + rng.normal(size=(400, 2000))
+    C = {str(d): _device_corr(X, device=d) for d in (dev, "cpu")}
+    np.testing.assert_allclose(C[str(dev)], C["cpu"], rtol=1e-5, atol=1e-6)
+    A = np.abs(C["cpu"]) ** 6
+    np.testing.assert_allclose(tom(A, device=dev), tom(A, device="cpu"), rtol=1e-5, atol=1e-6)
+
+
+def test_assoc_lmm_on_card_matches_cpu(dev):
+    """``ASSOC("lmm")._assoc_arrays`` on the card against the CPU: the null
+    λ rtol 1e-6 and Δ(-log10 p) <= 5e-3 (tests/test_scans.py:155)."""
+    from janusx_tpu_torch.api import ASSOC
+
+    pg, basis, Y, _ = _scan_problem(3000, 300, 1)
+    G = pg.dosages().T.astype(np.float64)
+    G[G < 0] = np.nan
+    K = basis.U @ np.diag(basis.S) @ basis.U.T
+    card, cpu = (ASSOC("lmm", device=d).fit(Y[:, 0], K=K) for d in (dev, "cpu"))
+    assert card.null_fit_["lambda"] == pytest.approx(cpu.null_fit_["lambda"], rel=1e-6)
+    pc, ph = card._assoc_arrays(G)[2], cpu._assoc_arrays(G)[2]
+    assert np.isfinite(pc).all()
+    assert np.abs(np.log10(pc) - np.log10(ph)).max() <= 5e-3

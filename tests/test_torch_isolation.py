@@ -9,7 +9,10 @@
   and must end with no ``jax`` module loaded; a second one does the same
   for ``jx gs`` and ``jx gspredict``, a third for ``jx grm``, ``jx pca``,
   ``jx gstats`` and ``jx fvlmm2 -i``, which must also load neither
-  matplotlib nor pandas (so they run where neither is installed).
+  matplotlib nor pandas (so they run where neither is installed), and
+  others for the Bayes/fastpop/tree slice and for ``jx garfield``,
+  ``jx garfieldbench``, ``jx benchmark``, the WGCNA helpers and
+  ``ASSOC._assoc_arrays``.
 - The host modules the port carries as copies (janusx_tpu/__init__.py
   imports jax, so they cannot be shared by import) stay identical to their
   originals once ``janusx_tpu`` is renamed in import lines and citations
@@ -18,6 +21,7 @@
   keep line for line.
 """
 
+import functools
 import inspect
 import os
 import re
@@ -40,6 +44,8 @@ COPIES = (
     + [f"gs/{m}.py" for m in ("__init__", "kfold", "metrics", "model_io", "workflow")]
     + ["cli/gspredict.py", "cli/pca.py", "plots/__init__.py", "plots/structure.py"]
     + ["cli/fastpop.py", "cli/tree.py", "models/mltree.py"]
+    + ["models/sim.py", "utils/gff.py", "io/bin01.py", "cli/garfield.py", "cli/postgarfield.py",
+       "gtools/reader.py", "cli/benchmark.py"]
 )
 
 _IMPORT = re.compile(r"^\s*(from|import)\s+janusx_tpu\b")
@@ -293,6 +299,69 @@ def test_port_bayes_fastpop_tree_run_without_jax(tmp_path):
         assert f"{mod}_LOADED False" in proc.stdout
 
 
+_GARFIELD_SLICE = r"""
+import os, sys
+import numpy as np
+from janusx_tpu_torch.io import bitcodec
+from janusx_tpu_torch.io.gdata import SiteInfo
+from janusx_tpu_torch.io.plink import write_plink
+from janusx_tpu_torch.cli.main import main
+
+rng = np.random.default_rng(5)
+n, m = 80, 160
+g = rng.binomial(2, 0.4, size=(m, n)).astype(np.uint8)
+sites = SiteInfo(chrom=np.array(["1"] * 80 + ["2"] * 80, object),
+                 pos=np.arange(1, m + 1, dtype=np.int64) * 100,
+                 snp=np.array([f"s{i}" for i in range(m)], object),
+                 allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+d = sys.argv[1]
+write_plink(d + "/toy", bitcodec.pack_codes(g), n, sites,
+            np.array([f"i{j}" for j in range(n)], object))
+y = 2.0 * ((g[10] == 2) & (g[90] == 2)) + rng.normal(size=n) * 0.5
+with open(d + "/toy.pheno", "w") as fh:
+    fh.write("ID\tt0\n" + "".join(f"i{j}\t{v}\n" for j, v in enumerate(y)))
+b = ["garfield", "-bfile", d + "/toy", "-p", d + "/toy.pheno", "-perm", "5", "-maf", "0",
+     "-geno", "1"]
+assert main(b + ["-o", d + "/g1"]) == 0
+assert main(b + ["-w", "4", "-o", d + "/g2"]) == 0
+assert main(b + ["-width", "24", "-grm", "-o", d + "/g3"]) == 0
+assert main(["garfieldbench", "-nind", "60", "-nsnp", "80", "-reps", "1", "--and-het-max", "1",
+             "-o", d + "/gb"]) == 0
+assert main(["benchmark", "-nind", "60", "-nsnp", "200", "-modules", "grm,lm,lmm,gblup",
+             "-repeats", "1", "-o", d + "/b"]) == 0
+for f in ("g1/garfield.t0.garfield.tsv", "g2/garfield.t0.garfield.windows.tsv",
+          "g3/garfield.t0.garfield.tsv", "gb/garfieldbench.garfieldbench.json",
+          "b/bench.benchmark.json"):
+    assert os.path.exists(f"{d}/{f}"), f
+from janusx_tpu_torch.api import ASSOC
+from janusx_tpu_torch.gtools import cluster, cor, tom, adj
+G = np.where(g == 3, np.nan, g.astype(float)).T
+beta, se, p = ASSOC("lmm").fit(y)._assoc_arrays(G)
+assert np.isfinite(p).all()
+labels = cluster(tom(adj(cor(G[:, :60]), 4)), min_cluster_size=3)
+assert labels.shape == (60,)
+print("JAX_LOADED", "jax" in sys.modules)
+print("REFERENCE_LOADED", any(k.split(".")[0] == "janusx_tpu" for k in sys.modules))
+print("MPL_LOADED", "matplotlib" in sys.modules)
+print("PANDAS_LOADED", "pandas" in sys.modules)
+"""
+
+
+def test_port_garfield_api_bench_run_without_jax(tmp_path):
+    """``jx garfield`` (whole-genome, ``-w``, ``-width -grm``), ``jx
+    garfieldbench``, ``jx benchmark``, the WGCNA helpers and
+    ``ASSOC._assoc_arrays`` in a fresh interpreter: no jax, no module of
+    janusx_tpu, and neither matplotlib nor pandas loaded (so they run where
+    neither is installed)."""
+    env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _GARFIELD_SLICE, str(tmp_path)], env=env,
+                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for mod in ("JAX", "REFERENCE", "MPL", "PANDAS"):
+        assert f"{mod}_LOADED False" in proc.stdout
+
+
 # functions that the ported modules keep line for line: (module, name)
 _KEPT = (
     [("models/grm.py", "balanced_part_bounds"), ("models/pca.py", "pca_from_grm"),
@@ -313,6 +382,12 @@ _KEPT = (
                                        "bionj", "bionj_stats")]
     + [("models/fastpop.py", f) for f in ("AdmixtureFit", "cv_error",
                                           "write_admixture_outputs")]
+    + [("models/garfield.py", f) for f in ("Rule", "GarfieldResult", "_residualize",
+                                           "parse_pm_spec", "rule_null_threshold", "bh_fdr",
+                                           "write_garfield_tsv")]
+    + [("gtools/wgcna.py", f) for f in ("cor", "_scale_free_fit", "pick_soft_threshold", "adj",
+                                        "cluster", "write_modules_tsv")]
+    + [("api.py", f) for f in ("ASSOC.fit", "GenomicSelection.predict")]
 )
 
 
@@ -320,9 +395,12 @@ _KEPT = (
 def test_kept_function_matches_original(rel, name):
     import importlib
 
-    mod = lambda pkg: importlib.import_module(f"{pkg}.{rel[:-3].replace('/', '.')}")
-    original = inspect.getsource(getattr(mod("janusx_tpu"), name))
-    assert inspect.getsource(getattr(mod("janusx_tpu_torch"), name)) == _renamed(original)
+    def obj(pkg):  # a function, a class, or a class's method "Class.method"
+        mod = importlib.import_module(f"{pkg}.{rel[:-3].replace('/', '.')}")
+        return functools.reduce(getattr, name.split("."), mod)
+
+    original = inspect.getsource(obj("janusx_tpu"))
+    assert inspect.getsource(obj("janusx_tpu_torch")) == _renamed(original)
 
 
 def test_port_sources_never_import_jax():
