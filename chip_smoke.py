@@ -172,6 +172,28 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     argmin cell the plain version's or a near-tie within the cell
     tolerance; G1/G2 one sweep block by block from the launch's state, the
     launch's result equal to the block-by-block launches bit for bit).
+16. (run before phase 10's lines) the genotype tools and ``jx ggval`` on
+    phase 5's panel: ``jx env`` (lists JX_TPU_PLATFORM), ``jx sim`` at its
+    defaults, ``jx view`` of the panel and of phase 12's GRM, ``jx refcheck
+    -bfile -p``; ``jx gformat -chr 1`` (chromosome 1, the source of the
+    one-chromosome tools: ~31,580 SNPs), then ``jx gformat -prune 50 5
+    0.2`` on it on the card and on the CPU (every in-window pair on the
+    same side of the threshold on both but those whose CPU r² lies within
+    1e-5 of it, and with none across it the kept lists identical; the
+    whole panel's greedy host walk takes longer than the phase may, see
+    scripts/tools_full_width.py), its first 4,096 SNPs to ``-fmt vcf`` and
+    ``-fmt hmp`` and back (codes bit-equal), ``jx gmerge`` of its two
+    sample halves (the whole, byte for byte); ``jx hybrid`` predict ``-top
+    1000`` on the whole panel with its stage seconds, on the first 16,384
+    SNPs on the card and on the CPU (every cross among the first 200
+    samples within rtol 1e-4 / atol 1e-6) and build mode on 20 x 20
+    parents of chromosome 1 to plink (bit-equal to rint((clip(g1) +
+    clip(g2)) / 2), the missing calls in place); no kernel launches in
+    these. Then ``jx ggval gwas gs gs-vcf gs-hmp grm-pca`` at its defaults
+    (every check PASS), with K1 and K2 launched inside its ``jx gwas -lmm``
+    and each first launch per shape held against its plain version as in
+    phase 15; prints each command's wall beside the card's name and power
+    limit, and the phase's wall against its 150 s budget.
 """
 
 from __future__ import annotations
@@ -2049,7 +2071,7 @@ def held():
             setattr(kernels, n, fn)
 
 
-def hold_launches(kept: list, path: str, dev) -> dict:
+def hold_launches(kept: list, path: str, dev, phase: str = "phase 15") -> dict:
     """Each launch that held() kept, against its plain version on the same
     inputs, at phases 3, 4 and 13's tolerances: K1 rtol 1e-5 / atol 1e-4;
     K2 against its own mode's plain version by _k2_bounds (beta/se at λ*
@@ -2068,7 +2090,7 @@ def hold_launches(kept: list, path: str, dev) -> dict:
 
     errs = {}
     for name, a, out, after in kept:
-        what = f"phase 15 {path} {name}"
+        what = f"{phase} {path} {name}"
         if name == "decode_rotate":
             plain = (kernels.decode_rotate_plain if a["prec"] == "highest"
                      else kernels.decode_rotate_high_plain)
@@ -2561,6 +2583,313 @@ def run_epistasis_phase(d, prefix, rows5, cpu, dev, smi) -> tuple:
     return paths, errs
 
 
+# ------------------------------------------------------------ phase 16
+TOOLS_CHROM = "1"  # gformat -prune, the format round trips, gmerge and hybrid build
+CONV_SNPS = 4_096  # the VCF/HapMap round trips: chromosome 1's first SNPs
+PRUNE = ("50", "5", "0.2")
+NEAR_R2 = 1e-5  # a prune decision on a pair this close to the threshold may differ
+HYBRID_TOP = 1000
+HYBRID_PARENTS = 20  # build mode: 20 x 20 parents
+HYBRID_CROSS = 200  # predict card vs CPU: every cross among the first 200 samples
+TOOLS_BUDGET_S = 150.0
+
+
+@contextlib.contextmanager
+def r2_probe(window: int):
+    """Wrap ldprune._r2_host: its calls and seconds, and of each chunk the
+    band of r² that one prune window can read (0 < j - i < window), as a
+    (rows, window - 1) array padded with NaN."""
+    from janusx_tpu_torch.models import ldprune
+
+    fn, rec = ldprune._r2_host, {"calls": 0, "s": 0.0, "bands": []}
+
+    def wrapped(packed, mean, pairwise, dev):
+        t1 = time.monotonic()
+        r2 = fn(packed, mean, pairwise, dev)
+        rec["s"] += time.monotonic() - t1
+        k = r2.shape[0]
+        band = np.full((k, window - 1), np.nan, np.float32)
+        for off in range(1, min(window, k)):
+            band[:k - off, off - 1] = np.diagonal(r2, off)
+        rec["bands"].append(band)
+        rec["calls"] += 1
+        return r2
+
+    ldprune._r2_host = wrapped
+    try:
+        yield rec
+    finally:
+        ldprune._r2_host = fn
+
+
+def read_codes(prefix: str):
+    """(unpacked codes (m, n) with 3 = missing, sites, samples) of a
+    genotype file through the port's reader."""
+    from janusx_tpu_torch.io import bitcodec
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+
+    raw = load_raw_packed(prefix)
+    return bitcodec.unpack_codes(raw.packed, raw.n_samples), raw.sites, raw.samples
+
+
+def same_sites(a, b) -> bool:
+    return all(np.array_equal(np.asarray(getattr(a, f)).astype(str),
+                              np.asarray(getattr(b, f)).astype(str))
+               for f in ("chrom", "pos", "snp", "allele0", "allele1"))
+
+
+def read_hybrid(path: str) -> dict:
+    _, rows = read_tsv(path)
+    return {(r[0], r[1]): float(r[2]) for r in rows}
+
+
+def run_hybrid(d: str, prefix: str, pheno: str, chr1: str, cli) -> None:
+    """``jx hybrid``: predict -top 1000 on the whole panel with its stage
+    seconds; predict on the first CROSS_SNPS SNPs on the card and on the CPU
+    (every cross among the first HYBRID_CROSS samples, within rtol 1e-4 /
+    atol 1e-6); build mode on 20 x 20 parents of chromosome 1 to -fmt plink,
+    read back bit-exact against rint((clip(g1) + clip(g2)) / 2)."""
+    from janusx_tpu_torch.gs import blup
+    from janusx_tpu_torch.io import bitcodec, gfreader, packed
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+    from janusx_tpu_torch.io.plink import write_plink
+    from janusx_tpu_torch.models import grm
+
+    out = os.path.join(d, "tools")
+    targets = {"load_qc": (gfreader, "prepare_packed"), "grm": (grm, "grm_from_packed"),
+               "fit_gblup": (blup, "fit_gblup"), "marker_effects": (blup, "marker_effects"),
+               "centered": (packed.PackedGenotypes, "centered")}
+    with probe(targets) as rec:
+        printed, wall = cli(["hybrid", "-bfile", prefix, "-p", pheno, "-top", str(HYBRID_TOP),
+                             "-o", out, "-prefix", "hy"], "hybrid predict")
+    header, rows = read_tsv(os.path.join(out, "hy.hybrid.tsv"))
+    v = np.array([float(r[2]) for r in rows])
+    n_all = N_SAMPLES * (N_SAMPLES - 1) // 2
+    require(header == "parent1\tparent2\tpredicted" and len(rows) == HYBRID_TOP
+            and bool(np.all(np.isfinite(v))) and bool(np.all(np.diff(v) <= 0))
+            and f"{HYBRID_TOP}/{n_all} crosses" in printed,
+            f"phase 16 hybrid predict: {len(rows)} rows, {printed!r}")
+    rest = wall - sum(r["s"] for r in rec.values())
+    say(f"phase 16 hybrid predict {N_SAMPLES} parents x {M_SNPS} SNPs, {n_all} crosses, "
+        f"top {HYBRID_TOP} in [{v[-1]:.4f}, {v[0]:.4f}]; stages (s): {stages(rec)}, crosses "
+        f"+ sort + TSV {rest:.3f}; cli {wall:.2f} s")
+
+    # the first CROSS_SNPS SNPs, card against CPU
+    raw = load_raw_packed(prefix)
+    head = os.path.join(d, "tools_head")
+    write_plink(head, raw.packed[:CROSS_SNPS], raw.n_samples,
+                raw.sites.take(np.arange(CROSS_SNPS)), raw.samples)
+    crosses = os.path.join(d, "tools_crosses.tsv")
+    with open(crosses, "wt") as fh:
+        fh.writelines(f"ind{i}\tind{j}\n" for i in range(HYBRID_CROSS)
+                      for j in range(i + 1, HYBRID_CROSS))
+    got, secs = {}, {}
+    platform = os.environ["JX_TPU_PLATFORM"]
+    for plat in ("cuda", "cpu"):
+        os.environ["JX_TPU_PLATFORM"] = plat
+        _, secs[plat] = cli(["hybrid", "-bfile", head, "-p", pheno, "-crosses", crosses,
+                             "-top", "0", "-o", out, "-prefix", f"hy_{plat}"],
+                            f"hybrid predict head {plat}")
+        got[plat] = read_hybrid(os.path.join(out, f"hy_{plat}.hybrid.tsv"))
+    os.environ["JX_TPU_PLATFORM"] = platform
+    keys = sorted(got["cpu"])
+    require(sorted(got["cuda"]) == keys and len(keys) == HYBRID_CROSS * (HYBRID_CROSS - 1) // 2,
+            "phase 16 hybrid head: the crosses differ")
+    a = np.array([got["cuda"][k] for k in keys])
+    b = np.array([got["cpu"][k] for k in keys])
+    err = np.abs(a - b)
+    require(bool(np.all(err <= 1e-6 + 1e-4 * np.abs(b))),
+            f"phase 16 hybrid head card vs cpu: outside rtol 1e-4 / atol 1e-6 "
+            f"(max |err| {float(err.max()):.3g})")
+    say(f"phase 16 hybrid predict on {CROSS_SNPS} SNPs, {len(keys)} crosses, card vs cpu: "
+        f"max |Δ| {float(err.max()):.3g} (printed to 4 decimals; bound rtol 1e-4 / atol 1e-6); "
+        f"cli card {secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s")
+
+    # build mode on chromosome 1
+    ids = [f"ind{j}" for j in range(2 * HYBRID_PARENTS)]
+    lists = []
+    for k in range(2):
+        lists.append(os.path.join(d, f"tools_p{k + 1}.txt"))
+        with open(lists[-1], "wt") as fh:
+            fh.write("\n".join(ids[k * HYBRID_PARENTS:(k + 1) * HYBRID_PARENTS]) + "\n")
+    _, wall_b = cli(["hybrid", "-bfile", chr1, "-p1", lists[0], "-p2", lists[1], "-fmt", "plink",
+                     "-o", out, "-prefix", "hb"], "hybrid build")
+    codes, sites, _ = read_codes(chr1)
+    g = np.where(codes == bitcodec.CODE_MISSING, -1.0, codes.astype(np.float32))
+    g1, g2 = g[:, :HYBRID_PARENTS], g[:, HYBRID_PARENTS:2 * HYBRID_PARENTS]
+    want = np.rint((np.clip(g1, 0, 2)[:, :, None] + np.clip(g2, 0, 2)[:, None, :]) * 0.5)
+    miss = (g1 < 0)[:, :, None] | (g2 < 0)[:, None, :]
+    want = np.where(miss, bitcodec.CODE_MISSING, want).reshape(len(g), -1).astype(np.uint8)
+    hb, hsites, hsamples = read_codes(os.path.join(out, "hb"))
+    require(bool(np.array_equal(hb, want)) and same_sites(hsites, sites)
+            and list(hsamples[:2]) == ["ind0@ind20", "ind0@ind21"],
+            f"phase 16 hybrid build: the hybrids differ from rint((clip(g1) + clip(g2)) / 2) "
+            f"in {int((hb != want).sum())} calls")
+    say(f"phase 16 hybrid build {HYBRID_PARENTS} x {HYBRID_PARENTS} on chromosome "
+        f"{TOOLS_CHROM} ({len(g)} SNPs) to plink: bit-equal to rint((clip(g1) + clip(g2)) / 2), "
+        f"{int(miss.sum())} missing calls in place; cli {wall_b:.2f} s")
+
+
+def run_gformat(d: str, chr1: str, cli) -> None:
+    """``jx gformat -prune 50 5 0.2`` on chromosome 1 on the card and on the
+    CPU: every in-window pair on the same side of the threshold on both but
+    those whose CPU r² lies within NEAR_R2 of it, and with no pair across
+    it the kept SNP lists identical. Then chromosome 1's first CONV_SNPS
+    SNPs to -fmt vcf and -fmt hmp and back: codes bit-equal to the source's."""
+    out = os.path.join(d, "tools")
+    thr, window = float(PRUNE[2]), int(PRUNE[0])
+    kept, rec, walls = {}, {}, {}
+    platform = os.environ["JX_TPU_PLATFORM"]
+    for plat in ("cuda", "cpu"):
+        os.environ["JX_TPU_PLATFORM"] = plat
+        with r2_probe(window) as rec[plat]:
+            _, walls[plat] = cli(["gformat", "-bfile", chr1, "-prune", *PRUNE, "-o", out,
+                                  "-prefix", f"pr_{plat}"], f"gformat -prune {plat}")
+        with open(os.path.join(out, f"pr_{plat}.bim")) as fh:
+            kept[plat] = [ln.split("\t")[1] for ln in fh]
+    os.environ["JX_TPU_PLATFORM"] = platform
+    require(len(rec["cuda"]["bands"]) == len(rec["cpu"]["bands"]) > 0,
+            "phase 16 gformat -prune: the card and the cpu read different r² chunks")
+    bc, bp = np.concatenate(rec["cuda"]["bands"]), np.concatenate(rec["cpu"]["bands"])
+    valid = ~np.isnan(bp)
+    near = valid & (np.abs(bp - thr) <= NEAR_R2)
+    across = valid & ((bc > thr) != (bp > thr))
+    require(not bool((across & ~near).any()),
+            f"phase 16 gformat -prune: {int((across & ~near).sum())} in-window pairs on "
+            f"opposite sides of r² {thr} on the card and the cpu, beyond {NEAR_R2} of it")
+    require(kept["cuda"] == kept["cpu"] or bool(across.any()),
+            f"phase 16 gformat -prune: card keeps {len(kept['cuda'])}, cpu "
+            f"{len(kept['cpu'])} SNPs, with every pair on the same side of the threshold")
+    with open(chr1 + ".bim") as fh:
+        m1 = sum(1 for _ in fh)
+    dr2 = float(np.nanmax(np.abs(bc - bp)))
+    say(f"phase 16 gformat -prune {' '.join(PRUNE)} on chromosome {TOOLS_CHROM} ({m1} SNPs): "
+        f"card keeps {len(kept['cuda'])}, cpu {len(kept['cpu'])}, the lists "
+        f"{'identical' if kept['cuda'] == kept['cpu'] else 'differ'}; {int(valid.sum())} "
+        f"in-window pairs, {int((bp > thr).sum())} above r² {thr}, {int(near.sum())} within "
+        f"{NEAR_R2} of it, {int(across.sum())} across it; max |Δr²| card vs cpu {dr2:.3g}; "
+        f"r² chunks card {rec['cuda']['calls']} in {rec['cuda']['s']:.3f} s of cli "
+        f"{walls['cuda']:.2f} s, cpu {rec['cpu']['calls']} in {rec['cpu']['s']:.3f} s of cli "
+        f"{walls['cpu']:.2f} s")
+
+    # chromosome 1's first CONV_SNPS SNPs to VCF and HapMap, and back
+    codes, sites, samples = read_codes(chr1)
+    last = int(sites.pos[CONV_SNPS - 1])
+    conv = []
+    for fmt, path in (("vcf", "cv.vcf.gz"), ("hmp", "ch.hmp.txt")):
+        _, wall = cli(["gformat", "-bfile", chr1, "-chr", TOOLS_CHROM, "-to-bp", str(last),
+                       "-fmt", fmt, "-o", out, "-prefix", path.split(".")[0]], f"gformat {fmt}")
+        t1 = time.monotonic()
+        back, bsites, bsamples = read_codes(os.path.join(out, path))
+        read_s = time.monotonic() - t1
+        require(bool(np.array_equal(back, codes[:CONV_SNPS]))
+                and same_sites(bsites, sites.take(np.arange(CONV_SNPS)))
+                and list(map(str, bsamples)) == list(map(str, samples)),
+                f"phase 16 gformat -fmt {fmt}: read back, the codes differ from the source's "
+                f"in {int((back != codes[:CONV_SNPS]).sum()) if back.shape == (CONV_SNPS, codes.shape[1]) else 'shape'}")
+        conv.append(f"{fmt} written in {wall:.2f} s, read back in {read_s:.2f} s")
+    say(f"phase 16 gformat -fmt vcf / hmp of chromosome {TOOLS_CHROM}'s first {CONV_SNPS} SNPs "
+        f"x {len(samples)} samples, read back bit-equal: " + "; ".join(conv))
+
+
+def run_gmerge(d: str, chr1: str, cli) -> None:
+    """``jx gmerge`` of chromosome 1's two sample halves: equal to the whole,
+    bit for bit (.bed and .bim bytes, the sample IDs)."""
+    from janusx_tpu_torch.io import bitcodec
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+    from janusx_tpu_torch.io.plink import write_plink
+
+    out = os.path.join(d, "tools")
+    raw = load_raw_packed(chr1)
+    half = raw.n_samples // 2
+    halves = []
+    for k, cols in enumerate((np.arange(half), np.arange(half, raw.n_samples))):
+        halves.append(os.path.join(out, f"half{k + 1}"))
+        write_plink(halves[-1], bitcodec.subset_columns(raw.packed, raw.n_samples, cols),
+                    len(cols), raw.sites, raw.samples[cols])
+    printed, wall = cli(["gmerge", "-bfile", *halves, "-fmt", "plink", "-o", out, "-prefix",
+                         "merged"], "gmerge")
+    merged = os.path.join(out, "merged")
+    same = {ext: open(merged + ext, "rb").read() == open(chr1 + ext, "rb").read()
+            for ext in (".bed", ".bim")}
+    ids = lambda pre: [ln.split()[1] for ln in open(pre + ".fam")]
+    require(all(same.values()) and ids(merged) == ids(chr1),
+            f"phase 16 gmerge: the merged halves differ from the whole ({same})")
+    say(f"phase 16 gmerge of chromosome {TOOLS_CHROM}'s halves ({half} + "
+        f"{raw.n_samples - half} samples x {raw.m} SNPs): .bed and .bim equal to the whole "
+        f"byte for byte; {printed.splitlines()[-1]}; cli {wall:.2f} s")
+
+
+def run_tools_phase(d: str, prefix: str, pheno: str, grm_npy: str, dev, smi: str) -> tuple:
+    """Phase 16: the genotype tools and ``jx ggval`` on phase 5's panel.
+    Returns ({"ggval": its launches}, {"ggval": its held launches' errors})."""
+    from janusx_tpu_torch import config
+
+    t0 = time.monotonic()
+    total, walls = dict(NO_LAUNCHES), {}
+
+    def cli(argv, what):
+        printed, wall, launches = run_cli(argv, f"phase 16 {what}")
+        for k, v in launches.items():
+            total[k] += v
+        walls[what] = wall
+        return printed, wall
+
+    out = os.path.join(d, "tools")
+    printed, _ = cli(["env"], "env")
+    require(all(f"\n{k}" in printed for k in config.KNOBS) and "JX_TPU_PLATFORM" in printed,
+            "phase 16 jx env: a knob of the port is not listed")
+    printed, _ = cli(["sim", "-o", os.path.join(d, "sim")], "sim")
+    require(all(os.path.exists(os.path.join(d, "sim", "sim" + ext))
+                for ext in (".bed", ".bim", ".fam", ".pheno", ".qtl.tsv")),
+            f"phase 16 jx sim: outputs missing ({printed!r})")
+    printed, _ = cli(["view", prefix], "view panel")
+    require(f"format=bed\tsamples={N_SAMPLES}\tsnps={M_SNPS}" in printed,
+            f"phase 16 jx view panel: {printed[:200]!r}")
+    printed, _ = cli(["view", grm_npy], "view grm")
+    require(printed.startswith(f"npy\t({N_SAMPLES}, {N_SAMPLES})\tfloat64"),
+            f"phase 16 jx view grm: {printed[:200]!r}")
+    printed, _ = cli(["refcheck", "-bfile", prefix, "-p", pheno], "refcheck")
+    require(f"genotype\t{M_SNPS} SNPs x {N_SAMPLES} samples" in printed
+            and f"matched={N_SAMPLES}" in printed and f"trait\ttest0\tn={N_PHENO}" in printed
+            and "WARNING" not in printed, f"phase 16 jx refcheck: {printed!r}")
+
+    # chromosome 1 of the panel, the source of the one-chromosome tools
+    cli(["gformat", "-bfile", prefix, "-chr", TOOLS_CHROM, "-o", out, "-prefix", "chr1"],
+        "gformat -chr")
+    chr1 = os.path.join(out, "chr1")
+    run_gformat(d, chr1, cli)
+    run_gmerge(d, chr1, cli)
+    run_hybrid(d, prefix, pheno, chr1, cli)
+    require(total == NO_LAUNCHES, f"phase 16: a kernel launched outside jx ggval: {total}")
+
+    # jx ggval's card suites at their defaults, the kernels held
+    with held() as kept:
+        printed, wall, launches = run_cli(["ggval", "gwas", "gs", "gs-vcf", "gs-hmp", "grm-pca",
+                                           "-o", os.path.join(d, "ggval")], "phase 16 ggval")
+    walls["ggval"] = wall
+    checks = [ln for ln in printed.splitlines() if ln.rstrip().endswith(("PASS", "FAIL"))
+              or "  FAIL  " in ln]
+    tail = printed.splitlines()[-1]
+    n_ok, n_all = (int(x) for x in tail.split()[0].split("/"))
+    require(checks and all(ln.rstrip().endswith("PASS") for ln in checks)
+            and n_ok == n_all == len(checks), f"phase 16 ggval: {tail}; "
+            + " | ".join(ln for ln in checks if not ln.rstrip().endswith("PASS")))
+    require(launches["decode_rotate"] > 0 and launches["grid_neg_reml_lattice"] > 0
+            and launches["gibbs_sweep_marker"] == launches["gibbs_sweep_block_mvn"] == 0,
+            f"phase 16 ggval: launches {launches}")
+    say(f"phase 16 ggval gwas gs gs-vcf gs-hmp grm-pca: {tail.strip()}; launches {launches}; "
+        f"cli {wall:.2f} s")
+    errs = hold_launches(kept, "ggval", dev, phase="phase 16")
+    require(set(errs) == {"decode_rotate", "grid_neg_reml_lattice"},
+            f"phase 16 ggval: held launches of {sorted(errs)}")
+    wall = time.monotonic() - t0
+    say(f"phase 16 walls ({smi}): " + ", ".join(f"{k}={v:.2f}" for k, v in walls.items())
+        + f"; phase {wall:.2f} s of its {TOOLS_BUDGET_S:.0f} s budget")
+    say(f"phase 16 done in {wall:.2f} s")
+    return {"ggval": launches}, {"ggval": errs}
+
+
 def check_kernels(dev, join_panel) -> dict:
     """Phases 2-4: build, then each kernel against its plain version. The
     phase 5 panel being written beside the build is waited for before the
@@ -2724,10 +3053,16 @@ def main() -> int:
         epi_paths, held_errs = run_epistasis_phase(d, prefix, rows, cpu, dev, smi)
         paths.update(epi_paths)
         walls["epistasis"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        tool_paths, tool_errs = run_tools_phase(d, prefix, pheno,
+                                                os.path.join(d, "out12", "jx.cGRM.npy"), dev, smi)
+        paths.update(tool_paths)
+        held_errs.update(tool_errs)
+        walls["tools"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
     # the largest |error| of the path's own launches against the plain
-    # version (hold_launches), by phase 15's paths that launched the kernel
+    # version (hold_launches), by phase 15's and 16's paths that launched the kernel
     held_by = lambda name: {p: e[name] for p, e in held_errs.items() if name in e}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]
     k2t, k2td = k["k2t"]["highest"], k["k2t"]["default"]

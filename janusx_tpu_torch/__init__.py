@@ -11,9 +11,12 @@ gspredict``, ``jx grm``, ``jx pca``, ``jx gstats`` (site/sample tables, LD
 scores, KING), ``jx fvlmm2 -i``, ``jx fastpop``, ``jx tree``, ``jx
 garfield`` (the logic-rule search, B and its scores on the device) with
 ``jx postgarfield``, ``jx benchmark`` with ``jx gblupbench``, ``jx
-bayesbench`` and ``jx garfieldbench``, the WGCNA helpers (``gtools``) and
-the in-memory API (``api.ASSOC``, ``api.GenomicSelection``). ROADMAP.md
-lists what remains.
+bayesbench`` and ``jx garfieldbench``, the genotype tools and validation
+CLIs (``jx sim``, ``jx gformat``, ``jx gmerge``, ``jx view``, ``jx
+refcheck``, ``jx hybrid``, ``jx reml``, ``jx postgwas``, ``jx postgs``,
+``jx treeplot``, ``jx env``, ``jx ggval``), the WGCNA helpers (``gtools``)
+and the in-memory API (``api.ASSOC``, ``api.GenomicSelection``).
+ROADMAP.md lists what remains.
 """
 
 __version__ = "0.1.0"

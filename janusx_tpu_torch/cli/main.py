@@ -1,6 +1,7 @@
 """`jx` dispatcher of the port: ``python -m janusx_tpu_torch.cli.main
 <module> ...`` and its sub-entries (``gblupbench``, ``bayesbench``,
-``garfieldbench``). Only the modules ported so far are listed."""
+``garfieldbench``). ROADMAP.md lists the reference's modules that are
+still to come."""
 
 from __future__ import annotations
 
@@ -15,9 +16,21 @@ _MODULES: dict[str, tuple[str, str]] = {
     "grm": ("janusx_tpu_torch.cli.grm", "Genomic relationship matrix"),
     "pca": ("janusx_tpu_torch.cli.pca", "Principal components (eigh or randomized SVD)"),
     "gstats": ("janusx_tpu_torch.cli.gstats", "Per-site / per-sample genotype statistics"),
+    "sim": ("janusx_tpu_torch.cli.sim", "Simulate genotypes + phenotypes"),
+    "gformat": ("janusx_tpu_torch.cli.gformat", "Convert genotype files across formats"),
+    "postgwas": ("janusx_tpu_torch.cli.postgwas", "Manhattan/QQ plots + annotation"),
+    "reml": ("janusx_tpu_torch.cli.reml", "Variance components / BLUE / BLUP"),
     "fastpop": ("janusx_tpu_torch.cli.fastpop", "ADMIXTURE-style ancestry inference"),
     "tree": ("janusx_tpu_torch.cli.tree", "Neighbor-joining phylogeny from genotypes"),
+    "gmerge": ("janusx_tpu_torch.cli.gmerge", "Merge genotype panels"),
+    "env": ("janusx_tpu_torch.cli.env", "List JX_* expert environment knobs"),
+    "postgs": ("janusx_tpu_torch.cli.postgs", "GS CV plots + metric tables"),
+    "hybrid": ("janusx_tpu_torch.cli.hybrid", "F1 hybrid performance prediction"),
+    "view": ("janusx_tpu_torch.cli.view", "Inspect genotype/matrix artifacts"),
+    "refcheck": ("janusx_tpu_torch.cli.refcheck", "Input consistency checks"),
+    "ggval": ("janusx_tpu_torch.cli.ggval", "End-to-end install validation (simulate + run + check)"),
     "fvlmm2": ("janusx_tpu_torch.cli.fvlmm2", "G-by-E joint interaction scan (= jx gwas -fvlmm2)"),
+    "treeplot": ("janusx_tpu_torch.cli.treeplot", "Render a Newick tree"),
     "gspredict": ("janusx_tpu_torch.cli.gspredict", "Predict gebv from a saved .jxmodel.npz"),
     "garfield": ("janusx_tpu_torch.cli.garfield", "Logic-rule (epistasis) association search"),
     "postgarfield": ("janusx_tpu_torch.cli.postgarfield", "GARFIELD rule plots"),
@@ -34,7 +47,7 @@ _SUBENTRY = {
                       "Planted-epistasis recovery power benchmark"),
 }
 
-_ALIASES = {"adamixture": "fastpop"}
+_ALIASES = {"simulation": "sim", "adamixture": "fastpop"}
 
 
 def _help() -> str:

@@ -87,8 +87,10 @@ KNOBS: dict = {
     "JX_TPU_CG_MAX_ITER": (int, 1000, "Jacobi-PCG iteration cap"),
     "JX_TPU_SPARSE_CUTOFF": (float, 0.05, "sparse-GRM off-diagonal threshold (-splmm default)"),
     "JX_TPU_SPARSE_MAX_DENSE_COMP": (int, 4096, "largest kinship component eigendecomposed densely; bigger (percolated) ones take per-lambda sparse-LU factors"),
+    "JX_TPU_ML_SITE_BUDGET": (int, 2000, "site subsample budget for the approximate-ML tree"),
     "JX_TPU_LOWMEM": (bool, False, "force the disk-backed windowed genotype path regardless of size"),
     "JX_TPU_LOWMEM_BYTES": (int, None, "packed-size threshold (bytes) above which inputs stream from disk"),
+    "JX_TPU_HISTORY_DB": (str, "~/.janusx_tpu/history.db", "SQLite run-history location (0 disables)"),
     "JX_TPU_CACHE_BESIDE_SOURCE": (bool, False, "place ~name genotype caches next to the source (reference layout)"),
     "JANUSX_CACHE_DIR": (str, None, "cache directory override (reference-compatible name)"),
     "JX_TPU_PROGRESS": (bool, True, "stage progress lines in workflow logs (0 silences)"),
@@ -117,6 +119,12 @@ def choice_knob(name: str, allowed: tuple) -> str:
         raise ValueError(
             f"{name}={v!r}: expected one of {', '.join(allowed)}")
     return v
+
+
+def knob_table() -> list:
+    """(name, current, default, overridden, help) rows for `jx env`."""
+    return [(name, knob(name), default, os.environ.get(name) is not None, help_)
+            for name, (_typ, default, help_) in KNOBS.items()]
 
 
 def resolve_device(device=None):

@@ -893,3 +893,71 @@ def test_assoc_lmm_on_card_matches_cpu(dev):
     pc, ph = card._assoc_arrays(G)[2], cpu._assoc_arrays(G)[2]
     assert np.isfinite(pc).all()
     assert np.abs(np.log10(pc) - np.log10(ph)).max() <= 5e-3
+
+
+@pytest.fixture
+def sim_panel(tmp_path, monkeypatch):
+    """``jx sim`` of the port: 150 samples (half in families) x 1,500 SNPs,
+    2 % missing calls."""
+    from janusx_tpu_torch.cli.main import main
+
+    monkeypatch.setenv("JX_TPU_HISTORY_DB", "0")
+    monkeypatch.setenv("JX_TPU_PLATFORM", "cpu")
+    assert main(["sim", "-nind", "150", "-nsnp", "1500", "-nchr", "2", "-structure", "mixed",
+                 "-miss", "0.02", "-seed", "5", "-o", str(tmp_path), "-prefix", "sim"]) == 0
+    return str(tmp_path / "sim")
+
+
+def _on(monkeypatch, plat, argv):
+    from janusx_tpu_torch.cli.main import main
+
+    monkeypatch.setenv("JX_TPU_PLATFORM", plat)
+    assert main(argv) == 0
+
+
+def test_hybrid_predict_on_card_matches_cpu(dev, sim_panel, tmp_path, monkeypatch):
+    """``jx hybrid`` predict (GRM, GBLUP fit and marker effects on the
+    device) on the card against the CPU: every cross within rtol 1e-4 /
+    atol 1e-6 of its printed value, one unit of the %.4f print apart at
+    most."""
+    got = {}
+    for plat in ("cuda", "cpu"):
+        _on(monkeypatch, plat, ["hybrid", "-bfile", sim_panel, "-p", sim_panel + ".pheno",
+                                "-top", "0", "-o", str(tmp_path), "-prefix", plat])
+        with open(tmp_path / f"{plat}.hybrid.tsv") as fh:
+            next(fh)
+            got[plat] = {(a, b): float(v) for a, b, v in (ln.split("\t") for ln in fh)}
+    assert sorted(got["cuda"]) == sorted(got["cpu"]) and len(got["cpu"]) == 150 * 149 // 2
+    a, b = (np.array([got[p][k] for k in sorted(got["cpu"])]) for p in ("cuda", "cpu"))
+    units = np.abs(np.rint(a * 1e4) - np.rint(b * 1e4))  # in units of the print
+    assert np.all(units <= np.maximum(1.0, 1e4 * (1e-6 + 1e-4 * np.abs(b))))
+
+
+def test_gformat_prune_on_card_matches_cpu(dev, sim_panel, tmp_path, monkeypatch):
+    """``jx gformat -prune`` (r² chunks on the device, the greedy walk on the
+    host) keeps the same SNPs on the card as on the CPU, with a count and a
+    kb window, at a threshold that drops SNPs."""
+    for window in (("50", "5", "0.05"), ("300kb", "3", "0.05")):
+        kept = {}
+        for plat in ("cuda", "cpu"):
+            _on(monkeypatch, plat, ["gformat", "-bfile", sim_panel, "-prune", *window, "-o",
+                                    str(tmp_path), "-prefix", plat])
+            kept[plat] = (tmp_path / f"{plat}.bim").read_text()
+        assert kept["cuda"] == kept["cpu"]
+        assert 0 < kept["cpu"].count("\n") < 1500
+
+
+def test_ggval_gwas_on_card(dev, tmp_path, monkeypatch, capsys):
+    """``jx ggval gwas gs`` on the card: every check PASS, with K1 and K2
+    launched inside its ``jx gwas -lmm``."""
+    from janusx_tpu_torch.cli.main import main
+
+    monkeypatch.setenv("JX_TPU_PLATFORM", "cuda")
+    monkeypatch.setenv("JX_TPU_HISTORY_DB", "0")
+    kernels.reset_launches()
+    assert main(["ggval", "gwas", "gs", "-nind", "120", "-nsnp", "300", "-o",
+                 str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "12/12 checks passed" in out and "FAIL" not in out
+    launches = kernels.launch_counts()
+    assert launches["decode_rotate"] > 0 and launches["grid_neg_reml_lattice"] > 0

@@ -46,6 +46,11 @@ COPIES = (
     + ["cli/fastpop.py", "cli/tree.py", "models/mltree.py"]
     + ["models/sim.py", "utils/gff.py", "io/bin01.py", "cli/garfield.py", "cli/postgarfield.py",
        "gtools/reader.py", "cli/benchmark.py"]
+    + ["io/writers.py", "models/vcomp.py", "models/lme.py"]
+    + [f"cli/{m}.py" for m in ("sim", "gformat", "gmerge", "view", "refcheck", "hybrid", "reml",
+                               "env", "postgwas", "postgs", "treeplot", "ggval")]
+    + [f"plots/{m}.py" for m in ("gwasplots", "geneplot", "haplotype", "regionreport",
+                                 "gsplots")]
 )
 
 _IMPORT = re.compile(r"^\s*(from|import)\s+janusx_tpu\b")
@@ -360,6 +365,86 @@ def test_port_garfield_api_bench_run_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     for mod in ("JAX", "REFERENCE", "MPL", "PANDAS"):
         assert f"{mod}_LOADED False" in proc.stdout
+
+
+_TOOLS_SLICE = r"""
+import importlib.abc, os, sys
+
+BLOCKED = {"jax", "jaxlib", "pandas", "matplotlib", "sklearn"}
+tried = set()
+
+
+class Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            tried.add(name.split(".")[0])
+            raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+        return None
+
+
+sys.meta_path.insert(0, Absent())
+from janusx_tpu_torch.cli.main import main
+
+d = sys.argv[1]
+assert main(["ggval", "gwas", "gs", "gs-vcf", "gs-hmp", "grm-pca", "-nind", "60", "-nsnp",
+             "200", "-o", d + "/gg"]) == 0
+assert main(["sim", "-nind", "40", "-nsnp", "150", "-miss", "0.02", "-o", d, "-prefix",
+             "s"]) == 0
+b = ["-bfile", d + "/s"]
+assert main(["gformat", *b, "-prune", "20", "2", "0.1", "-o", d + "/f"]) == 0
+assert main(["gformat", *b, "-chr", "1", "-fmt", "vcf", "-o", d + "/f", "-prefix", "v"]) == 0
+assert main(["gformat", *b, "-fmt", "hmp", "-o", d + "/f", "-prefix", "h"]) == 0
+ids = [ln.split()[1] for ln in open(d + "/s.fam")]
+open(d + "/p1", "w").write("\n".join(ids[:3]))
+open(d + "/p2", "w").write("\n".join(ids[3:6]))
+assert main(["hybrid", *b, "-p1", d + "/p1", "-p2", d + "/p2", "-fmt", "plink",
+             "-o", d + "/h"]) == 0
+assert main(["hybrid", *b, "-p", d + "/s.pheno", "-top", "10", "-o", d + "/h"]) == 0
+assert main(["gmerge", "-bfile", d + "/f/jxout", d + "/h/hybrid", "-sample-prefix",
+             "-fmt", "plink", "-o", d + "/m"]) == 0
+assert main(["view", d + "/s"]) == 0
+assert main(["refcheck", *b, "-p", d + "/s.pheno"]) == 0
+assert main(["env"]) == 0
+for f in ("gg/ggval.ggval.log", "f/jxout.bed", "f/v.vcf.gz", "f/h.hmp.txt", "h/hybrid.bed",
+          "h/hybrid.hybrid.tsv", "m/merged.bed"):
+    assert os.path.exists(f"{d}/{f}"), f
+print("TRIED", sorted(tried))
+print("LOADED", sorted(m for m in BLOCKED | {"janusx_tpu"} if m in sys.modules))
+"""
+
+
+def test_port_tools_run_without_jax_pandas_matplotlib_sklearn(tmp_path):
+    """``jx ggval gwas gs gs-vcf gs-hmp grm-pca`` (the suites chip_smoke.py
+    runs) and ``jx sim``, ``jx gformat`` (-prune, -fmt vcf/hmp), ``jx
+    hybrid`` (build and predict), ``jx gmerge``, ``jx view``, ``jx
+    refcheck`` and ``jx env`` in a fresh interpreter whose import system
+    raises on jax, pandas, matplotlib and sklearn, as on a machine where
+    none of them is installed: each command exits 0 and none of them, nor
+    any module of janusx_tpu, is loaded."""
+    env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _TOOLS_SLICE, str(tmp_path)], env=env,
+                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
+
+
+# the reference's modules that later slices port (ROADMAP queue 1)
+_NOT_YET = {"bsa", "postbsa", "kmer", "kmerge", "kstats", "fastq2vcf", "fastq2count", "webui"}
+
+
+def test_dispatcher_lists_every_reference_module_but_the_later_slices():
+    from janusx_tpu.cli import main as ref
+    from janusx_tpu_torch.cli import main as port
+
+    want = set(ref._MODULES) | set(ref._SUBENTRY) | set(ref._ALIASES)
+    have = set(port._MODULES) | set(port._SUBENTRY) | set(port._ALIASES)
+    assert want - have == _NOT_YET
+    assert have <= want
+    for name in have & set(ref._MODULES):
+        assert port._MODULES[name][1] == ref._MODULES[name][1] or name in (
+            "gwas", "gs", "gspredict"), name
+    assert port._ALIASES == ref._ALIASES
 
 
 # functions that the ported modules keep line for line: (module, name)
