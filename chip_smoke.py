@@ -194,6 +194,32 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     and each first launch per shape held against its plain version as in
     phase 15; prints each command's wall beside the card's name and power
     limit, and the phase's wall against its 150 s budget.
+17. (run before phase 10's lines) k-mer GWAS at full width: 300 haploid
+    genomes of 500 kb (one random reference, 6,000 biallelic sites at least
+    64 bases apart, alt frequency ~ U[0.05, 0.5]) as FASTA files, a trait of
+    5 planted sites at 16 % of the variance each, a 10 % polygenic
+    background and noise; ``jx kmer -k 31 -min-count 1 -stream-db`` over
+    them (the first 3 tables equal a plain numpy count of the genome's
+    canonical 31-mers), ``jx kmerge -freq 0.05`` (the presence of every
+    k-mer that spans a site equals the planted genotypes) and ``jx kstats
+    -kbin``, these three in child processes of the port's dispatcher on a
+    thread started beside the kernels' build (they launch no kernel, and
+    the build leaves most host cores idle; KmerPipeline); then ``jx gwas
+    -lmm -force-model`` in process on the merged panel: K1 and
+    K2 launched once per resident superblock, each first launch per shape
+    held against its plain version as in phase 15, a CPU rescan of the
+    first 16,384 k-mers with the same basis (Δ(-log10 p) <= 0.05, the same
+    top 5 tests, a site's k-mers counted as one, λ_null within 2e-3), every
+    planted site at p < 1e-6 at a k-mer that spans it and the top hit on a
+    planted site; the same scan as a web UI job (ui.server in a thread, a
+    POST to /submit; its child runs janusx_tpu_torch.cli.main on the card,
+    ends ok, and its TSV is the in-process run's within Δ(-log10 p) 5e-3);
+    and the native CPU baseline (utils/baseline_cpu.py, built by g++ beside
+    nvcc) against the card's brent scan on phase 5's first 2,048 QC'd SNPs
+    (the two λ* within twice the Brent tolerance, beta/se within rtol 2e-2
+    of the port's f64 epilogue at the baseline's λ*, Δ(-log10 p) < 5e-2)
+    with both SNPs/s; prints each command's wall and the phase's against its 150 s
+    budget.
 """
 
 from __future__ import annotations
@@ -2995,6 +3021,472 @@ def rescan_default(rows5, cpu, dev) -> float:
     return dmax
 
 
+# ------------------------------------------------------------ phase 17
+KMER_K = 31
+KMER_SAMPLES = 300
+KMER_GENOME = 500_000  # bases of the simulated reference
+KMER_SITES = 6_000  # biallelic sites, each >= KMER_SPACING bases from the next
+KMER_SPACING = 64  # so that no 31-mer spans two sites
+KMER_FREQ = "0.05"  # jx kmerge -freq: presence rate in [0.05, 0.95]
+KMER_CAUSAL, KMER_H_CAUSAL, KMER_H_POLY = 5, 0.16, 0.10
+KMER_COUNTED = 3  # samples whose jx kmer table is held to a plain count
+BASELINE_SNPS = 2_048
+KMER_BUDGET_S = 150.0
+BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def native_builds() -> list:
+    """Start the g++ builds of the host libraries that phase 17 runs (the
+    k-mer counter and the CPU baseline scan), with the copies' own flags;
+    check_native() waits for them and raises on a failed build."""
+    src = lambda name: os.path.join(ROOT, "native", name)
+    cc = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
+    cmds = {"jxkmer": cc + ["-pthread", src("jxkmer.cpp"), "-o", src("libjxkmer.so")],
+            "jxbaseline": cc + [src("jxbaseline.cpp"), "-o", src("libjxbaseline.so"),
+                                "-lpthread"]}
+    return [(name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for name, cmd in cmds.items()]
+
+
+def check_native(procs) -> None:
+    for name, proc in procs:
+        out, _ = proc.communicate(timeout=300)
+        require(proc.returncode == 0, f"phase 17: g++ build of native/{name}.cpp failed: {out}")
+    from janusx_tpu_torch.models import kmer
+    from janusx_tpu_torch.utils import baseline_cpu
+
+    require(kmer.available() and baseline_cpu.available(),
+            "phase 17: a native library did not load after its build")
+
+
+def simulate_genomes(d: str, n: int, length: int, sites: int, seed: int,
+                     spacing: int = KMER_SPACING):
+    """A random reference of ``length`` bases with ``sites`` biallelic sites
+    at least ``spacing`` bases apart, alt frequency ~ U[0.05, 0.5]; one
+    haploid FASTA per sample, ``g<j>.fa``. Returns (the FASTA paths, the
+    reference as 0-3 codes, the site positions, the alt bases, the (sites,
+    n) 0/1 genotypes)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, length).astype(np.uint8)
+    gaps = rng.integers(spacing, (length - 200) // sites, sites)
+    pos = 100 + np.cumsum(gaps) - gaps[0]
+    require(pos[-1] < length - 100, "phase 17: the sites do not fit the genome")
+    alt = ((ref[pos] + rng.integers(1, 4, sites)) % 4).astype(np.uint8)
+    geno = (rng.random((sites, n)) < rng.uniform(0.05, 0.5, sites)[:, None]).astype(np.uint8)
+    paths = []
+    for j in range(n):
+        s = ref.copy()
+        s[pos] = np.where(geno[:, j] == 1, alt, ref[pos])
+        body = BASES[s].tobytes()
+        paths.append(os.path.join(d, f"g{j}.fa"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(b">chr1\n" + b"\n".join(body[i:i + 80] for i in range(0, length, 80))
+                     + b"\n")
+    return paths, ref, pos, alt, geno
+
+
+def canonical_codes(seq: np.ndarray, k: int) -> np.ndarray:
+    """Canonical 2-bit codes (A=0 C=1 G=2 T=3, the first base highest) of
+    every k-mer along the last axis of a 0-3 base array: the smaller of the
+    k-mer's and its reverse complement's (the counter's, models/kmer.py
+    decode_kmer)."""
+    w = seq.shape[-1] - k + 1
+    fwd = np.zeros(seq.shape[:-1] + (w,), np.uint64)
+    rev = np.zeros_like(fwd)
+    for i in range(k):
+        fwd = (fwd << np.uint64(2)) | seq[..., i:i + w].astype(np.uint64)
+        rev = (rev << np.uint64(2)) | (3 - seq[..., k - 1 - i:k - 1 - i + w]).astype(np.uint64)
+    return np.minimum(fwd, rev)
+
+
+def kmer_codes(strings, k: int) -> np.ndarray:
+    """2-bit codes of k-mer strings (jx kmerge's SNP IDs)."""
+    lut = np.zeros(256, np.uint64)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint64)
+    b = lut[np.frombuffer("".join(strings).encode(), np.uint8).reshape(-1, k)]
+    out = np.zeros(len(b), np.uint64)
+    for i in range(k):
+        out = (out << np.uint64(2)) | b[:, i]
+    return out
+
+
+def site_kmer_codes(ref, pos, alt, k: int):
+    """For each site, the canonical codes of the k windows that span it,
+    with the ref base and with the alt base: two (sites, k) arrays."""
+    win = ref[pos[:, None] + np.arange(-k + 1, k)[None, :]]  # (sites, 2k - 1)
+    out = []
+    for base in (ref[pos], alt):
+        w = win.copy()
+        w[:, k - 1] = base
+        out.append(canonical_codes(w, k))
+    return out
+
+
+def kmer_rows(codes: np.ndarray, row_codes: np.ndarray) -> np.ndarray:
+    """The row of each code among ``row_codes`` (-1 where absent)."""
+    order = np.argsort(row_codes)
+    i = np.clip(np.searchsorted(row_codes[order], codes), 0, len(order) - 1)
+    return np.where(row_codes[order][i] == codes, order[i], -1)
+
+
+def write_kmer_trait(path: str, geno, seed: int):
+    """KMER_CAUSAL sites at KMER_H_CAUSAL of the variance each, a polygenic
+    background of KMER_H_POLY over the other sites, the rest noise.
+    Returns the causal sites."""
+    rng = np.random.default_rng(seed)
+    z = (geno - geno.mean(1, keepdims=True)) / np.maximum(geno.std(1, keepdims=True), 1e-9)
+    q = np.sort(rng.choice(len(geno), KMER_CAUSAL, replace=False))
+    rest = np.setdiff1d(np.arange(len(geno)), q)
+    poly = z[rest].T @ rng.normal(size=len(rest))
+    y = (np.sqrt(KMER_H_CAUSAL) * z[q].sum(0) + np.sqrt(KMER_H_POLY) * poly / poly.std()
+         + np.sqrt(1 - KMER_CAUSAL * KMER_H_CAUSAL - KMER_H_POLY)
+         * rng.normal(size=geno.shape[1]))
+    with open(path, "w") as fh:
+        fh.write("ID\ttrait\n" + "".join(f"g{j}\t{v:.6f}\n" for j, v in enumerate(y)))
+    return q
+
+
+def check_kmer_counts(kdir: str, ref, pos, alt, geno, k: int, samples: int) -> int:
+    """Each of the first ``samples`` jx kmer tables equals a plain numpy
+    count of its genome's canonical k-mers; returns the k-mers compared."""
+    from janusx_tpu_torch.models.kmer import load_kmer_db
+
+    total = 0
+    for j in range(samples):
+        s = ref.copy()
+        s[pos] = np.where(geno[:, j] == 1, alt, ref[pos])
+        want, cnt = np.unique(canonical_codes(s, k), return_counts=True)
+        codes, counts, kk = load_kmer_db(os.path.join(kdir, f"kmer.g{j}.k{k}.jxkdb"))
+        require(kk == k and np.array_equal(np.asarray(codes), want)
+                and np.array_equal(np.asarray(counts), cnt),
+                f"phase 17: jx kmer's table of g{j} differs from a plain count")
+        total += len(want)
+    return total
+
+
+def check_presence(prefix: str, ref, pos, alt, geno, k: int):
+    """jx kmerge's presence matrix against the planted genotypes at every
+    k-mer that spans one site: present exactly in the samples that carry
+    the k-mer's allele. Returns (the k-mer codes of the matrix rows, the
+    (m, n) presence, the (sites, 2k) row of each spanning k-mer or -1, the
+    k-mers compared)."""
+    from janusx_tpu_torch.io import bin01
+
+    with open(prefix + ".bim") as fh:
+        snp = [ln.split("\t")[1] for ln in fh]
+    codes = kmer_codes(snp, k)
+    P = bin01.read_bin01(prefix + ".bin").dense() > 0
+    require(P.shape == (len(snp), geno.shape[1]), f"phase 17: presence matrix {P.shape}")
+    refk, altk = site_kmer_codes(ref, pos, alt, k)
+    rows = kmer_rows(np.concatenate([refk, altk], 1).reshape(-1), codes).reshape(len(pos), -1)
+    carrier = np.concatenate([np.repeat((geno == 0)[:, None], k, 1),
+                              np.repeat((geno == 1)[:, None], k, 1)], 1)  # (sites, 2k, n)
+    hit = rows >= 0
+    bad = int((P[rows[hit]] != carrier[hit]).any(1).sum())
+    require(bad == 0, f"phase 17: {bad} spanning k-mers' presence differs from the genotypes")
+    return codes, P, rows, int(hit.sum())
+
+
+def pattern_groups(P: np.ndarray) -> np.ndarray:
+    """A group id per row of a (m, n) presence matrix: rows of the same or
+    the complementary pattern (a site's ref and alt k-mers) share one,
+    since they carry one test."""
+    return np.unique(P ^ P[:, :1], axis=0, return_inverse=True)[1].reshape(-1)
+
+
+def agree_groups(card_p, cpu_p, groups, what: str, bound: float) -> float:
+    """max Δ(-log10 p) <= bound and the same top 5 tests, each group of
+    tied k-mers one test; returns the max."""
+    lp_card, lp_cpu = -np.log10(np.asarray(card_p)), -np.log10(np.asarray(cpu_p))
+    require(bool(np.all(np.isfinite(lp_card))), f"{what}: non-finite p-values")
+    dmax = float(np.max(np.abs(lp_card - lp_cpu)))
+    require(dmax <= bound, f"{what}: max Δ(-log10 p) {dmax:.4g} > {bound}")
+
+    def top(lp):
+        best = np.full(groups.max() + 1, -np.inf)
+        np.maximum.at(best, groups, lp)
+        return set(np.argsort(-best, kind="stable")[:5])
+
+    require(top(lp_card) == top(lp_cpu), f"{what}: top-5 tests differ")
+    return dmax
+
+
+def run_webui_job(d: str, prefix: str, pheno: str, rows, smi: str) -> float:
+    """``jx gwas -lmm -force-model`` on the k-mer panel as a web UI job:
+    its child runs the port's dispatcher on the card; its TSV holds
+    ``rows``' SNPs within Δ(-log10 p) 5e-3. Returns the job's wall."""
+    import urllib.parse
+    import urllib.request
+
+    from janusx_tpu_torch.ui.server import serve
+
+    work = os.path.join(d, "ui")
+    os.makedirs(work)
+    srv, state = serve(work, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        args = f"-bfile {prefix} -p {pheno} -lmm -force-model -o {work}/out"
+        body = urllib.parse.urlencode({"module": "gwas", "args": args, "csrf": state.csrf})
+        with urllib.request.urlopen(urllib.request.Request(base + "/submit", data=body.encode(),
+                                                           method="POST"), timeout=30) as r:
+            require(r.status == 200, f"phase 17 web UI submit: HTTP {r.status}")
+        t0 = time.monotonic()
+        while True:
+            with urllib.request.urlopen(base + "/api/jobs", timeout=30) as r:
+                jobs = json.loads(r.read().decode())
+            if jobs and jobs[0]["status"] != "running":
+                break
+            require(time.monotonic() - t0 < 300, "phase 17 web UI job still running after 300 s")
+            time.sleep(0.5)
+    finally:
+        srv.shutdown()
+        for job in state.jobs.values():  # a job past its time is stopped
+            job.cancel()
+    job = state.jobs[jobs[0]["id"]]
+    require(jobs[0]["status"] == "ok", f"phase 17 web UI job {jobs[0]}: {job.log_tail()[-2000:]}")
+    require(job.proc.args[1:3] == ["-m", "janusx_tpu_torch.cli.main"],
+            f"phase 17 web UI job ran {job.proc.args}")
+    header, got = read_tsv(os.path.join(work, "out", "jx.trait.LMM.assoc.tsv"))
+    require(header == HEADER and [r[2] for r in got] == [r[2] for r in rows],
+            "phase 17 web UI job: its TSV's rows differ from the in-process run's")
+    lp = lambda rr: -np.log10(np.array([float(r[10]) for r in rr]))
+    dmax = float(np.max(np.abs(lp(got) - lp(rows))))
+    require(dmax <= 5e-3, f"phase 17 web UI job vs in process: max Δ(-log10 p) {dmax:.3g}")
+    wall = job.finished - job.started
+    say(f"phase 17 web UI job ({smi}): gwas -lmm through ui.server's child "
+        f"({' '.join(job.proc.args[1:4])}), status ok, {len(got)} rows, max Δ(-log10 p) vs the "
+        f"in-process run {dmax:.3g}; job wall {wall:.2f} s")
+    return wall
+
+
+def run_baseline(cpu, dev, smi: str) -> None:
+    """The native CPU baseline (utils/baseline_cpu.py, the reference's
+    vs_baseline denominator) against the port's brent scan on the card
+    over phase 5's first BASELINE_SNPS QC'd SNPs, basis and trait, under
+    tests/test_baseline_cpu.py's bounds: beta/se rtol 2e-2 and Δ(-log10 p)
+    < 5e-2. Both are Brent chains that stop within SCAN_BRENT_TOL in log10
+    λ, and where a beta is ~1 % of its se that stopping point alone moves
+    it by more than 2 % of itself; so the two λ* are held within twice the
+    tolerance, and beta/se against the port's f64 epilogue at the
+    baseline's own λ*. Prints both SNPs/s."""
+    import torch
+
+    from janusx_tpu_torch import config
+    from janusx_tpu_torch.core import stats
+    from janusx_tpu_torch.core.reml import beta_se_snp_batch, make_rotated
+    from janusx_tpu_torch.models.lmm import lmm_scan
+    from janusx_tpu_torch.utils import baseline_cpu
+
+    head = cpu["head"].take_snps(np.arange(BASELINE_SNPS))
+    Gc = head.centered()
+    threads = os.cpu_count() or 1
+    t0 = time.monotonic()
+    lg, beta, se = baseline_cpu.baseline_scan(cpu["basis"], cpu["y"], Gc, n_threads=threads)
+    host_s = time.monotonic() - t0
+    walls = []
+    for _ in range(2):  # the second scan is warm; lmm2 adds each SNP's λ*
+        t0 = time.monotonic()
+        res, _ = lmm_scan(head, cpu["basis"], cpu["y"], method="brent", lmm2=True, device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    require(bool(np.isfinite(beta).all() and np.isfinite(se).all()), "baseline: non-finite")
+    dlg = float(np.max(np.abs(lg - np.log10(res.lbd))))
+    require(dlg <= 2 * config.SCAN_BRENT_TOL,
+            f"phase 17 baseline: λ* {dlg:.3g} from the card's in log10, beyond twice the Brent "
+            f"tolerance {config.SCAN_BRENT_TOL}")
+    f64 = torch.float64
+    rot = make_rotated(cpu["basis"], cpu["y"], None, device=dev)
+    Gr = torch.as_tensor(Gc, dtype=f64, device=dev) @ torch.as_tensor(cpu["basis"].U, dtype=f64,
+                                                                       device=dev)
+    at = [x.cpu().numpy() for x in beta_se_snp_batch(torch.as_tensor(lg, dtype=f64, device=dev),
+                                                      rot, Gr)]
+    for what, a, b in (("beta", beta, at[0]), ("se", se, at[1])):
+        bad = np.abs(a - b) > 1e-8 + 2e-2 * np.abs(b)
+        require(not bad.any(), f"phase 17 baseline {what}: {int(bad.sum())} SNPs outside rtol "
+                f"2e-2 of the port's f64 epilogue at the baseline's λ*")
+    rel = max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in ((beta, at[0]), (se, at[1])))
+    moved = int((np.abs(beta - res.beta) > 1e-8 + 2e-2 * np.abs(res.beta)).sum())
+    dlp = float(np.nanmax(np.abs(np.log10(stats.pwald_from_beta_se(beta, se))
+                                 - np.log10(res.pwald))))
+    require(dlp < 5e-2, f"phase 17 baseline vs card brent: max Δ(-log10 p) {dlp:.3g}")
+    say(f"phase 17 baseline ({smi}): native CPU scan of {BASELINE_SNPS} SNPs x n="
+        f"{cpu['basis'].n} on {threads} host threads {host_s:.3f} s = "
+        f"{BASELINE_SNPS / host_s:.0f} SNPs/s (rotation included); the card's brent scan "
+        f"{walls[1]:.3f} s warm ({walls[0]:.3f} s cold) = {BASELINE_SNPS / walls[1]:.0f} SNPs/s; "
+        f"λ* within {dlg:.3g} in log10, beta/se at the baseline's λ* within rel {rel:.3g}, "
+        f"{moved} betas beyond rtol 2e-2 of the card's at its own λ*, max Δ(-log10 p) {dlp:.3g}")
+
+
+class KmerPipeline:
+    """Phase 17's host pipeline, started beside the kernels' build, whose
+    nvcc processes and panel writer leave most of the host's cores idle:
+    the native builds checked, the genomes and the trait written, then
+    ``jx kmer``, ``jx kmerge`` and ``jx kstats`` each in a child process of
+    the port's dispatcher (they run no kernel). join() returns what phase
+    17 needs; stop() ends a child still running when the smoke fails
+    first."""
+
+    def __init__(self, d: str, natives):
+        self.kd, self.natives = os.path.join(d, "kmer"), natives
+        self.out, self.proc, self.stopped = {}, None, False
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _cli(self, name: str, argv) -> None:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            x for x in (ROOT, os.environ.get("PYTHONPATH")) if x))
+        t0 = time.monotonic()
+        self.proc = subprocess.Popen([sys.executable, "-m", "janusx_tpu_torch.cli.main", *argv],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                     cwd=self.kd, env=env)
+        stdout, stderr = self.proc.communicate()
+        require(self.proc.returncode == 0 and not self.stopped,
+                f"phase 17 {name}: rc {self.proc.returncode}: {stderr[-2000:]}")
+        self.out[name] = (stdout.strip(), time.monotonic() - t0)
+
+    def _run(self) -> None:
+        try:
+            check_native(self.natives)
+            os.makedirs(self.kd)
+            t0 = time.monotonic()
+            paths, *self.out["panel"] = simulate_genomes(self.kd, KMER_SAMPLES, KMER_GENOME,
+                                                         KMER_SITES, seed=20261018)
+            self.out["pheno"] = os.path.join(self.kd, "trait.pheno")
+            self.out["causal"] = write_kmer_trait(self.out["pheno"], self.out["panel"][3],
+                                                  seed=20261019)
+            self.out["write"] = time.monotonic() - t0
+            self._cli("kmer", ["kmer", "-i", *paths, "-k", str(KMER_K), "-min-count", "1",
+                               "-stream-db", "-t", str(os.cpu_count() or 1), "-o", "k"])
+            dbs = [os.path.join("k", f"kmer.g{j}.k{KMER_K}.jxkdb") for j in range(KMER_SAMPLES)]
+            self._cli("kmerge", ["kmerge", "-i", *dbs, "-freq", KMER_FREQ, "-o", "m"])
+            self._cli("kstats", ["kstats", "-kbin", os.path.join("m", "kmerged"), "-o", "s"])
+        except BaseException as e:  # raised again by join()
+            self.out["error"] = e
+
+    def join(self) -> dict:
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out
+
+    def stop(self) -> None:
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        self.thread.join()
+
+
+def run_kmer_phase(pipeline: KmerPipeline, cpu, dev, smi: str) -> tuple:
+    """Phase 17: k-mer GWAS at full width, a web UI job and the native CPU
+    baseline. Returns ({"kmer": the gwas run's launches}, {"kmer": its
+    held launches' errors})."""
+    from janusx_tpu_torch import config
+    from janusx_tpu_torch.core.spectral import eigh_grm
+    from janusx_tpu_torch.io.gfreader import load_raw_packed
+    from janusx_tpu_torch.io.packed import QcParams
+    from janusx_tpu_torch.io.pheno import load_phenotype
+    from janusx_tpu_torch.models.lmm import lattice_superblock, lmm_scan
+    from janusx_tpu_torch.models.scan_common import analysis_sample_index
+    from janusx_tpu_torch.utils.cache import load_or_build_grm
+
+    t0 = time.monotonic()
+    got = pipeline.join()
+    kd, pheno, causal = pipeline.kd, got["pheno"], got["causal"]
+    ref, pos, alt, geno = got["panel"]
+    walls = {"wait": time.monotonic() - t0}
+    say(f"phase 17 panel: {KMER_SAMPLES} haploid genomes of {KMER_GENOME} bases with "
+        f"{KMER_SITES} sites written in {got['write']:.2f} s; trait: {KMER_CAUSAL} sites at "
+        f"{KMER_H_CAUSAL:.0%} each, {KMER_H_POLY:.0%} polygenic")
+    for name in ("kmer", "kmerge", "kstats"):
+        printed, wall = got[name]
+        lines = printed.splitlines()
+        shown = lines[:3] + ([f"... {len(lines) - 3} more lines"] if len(lines) > 3 else [])
+        say(f"phase 17 {name} cli (a child process, beside phases 2-16): wall={wall:.2f} s :: "
+            + " | ".join(shown))
+    require(len(got["kstats"][0].splitlines()) == KMER_SAMPLES + 1,
+            "phase 17 kstats: not a row per sample")
+    n_counted = check_kmer_counts(os.path.join(kd, "k"), ref, pos, alt, geno, KMER_K,
+                                  KMER_COUNTED)
+    prefix = os.path.join(kd, "m", "kmerged")
+    codes, P, site_rows, n_spanning = check_presence(prefix, ref, pos, alt, geno, KMER_K)
+    say(f"phase 17 k-mers: {len(codes)} segregating 31-mers; the tables of {KMER_COUNTED} "
+        f"samples ({n_counted} k-mers) equal a plain count; the presence of all {n_spanning} "
+        f"k-mers that span a site equals the planted genotypes")
+
+    out = os.path.join(kd, "g")
+    with held() as kept:
+        printed, walls["gwas"], launches = run_cli(
+            ["gwas", "-bfile", prefix, "-p", pheno, "-lmm", "-force-model", "-o", out],
+            "phase 17 gwas")
+    header, rows = read_tsv(os.path.join(out, "jx.trait.LMM.assoc.tsv"))
+    with open(os.path.join(out, "jx.gwas.summary.json")) as fh:
+        summary = json.load(fh)
+    require(header == HEADER and len(rows) > 0.9 * len(codes), f"phase 17 TSV: {len(rows)} rows")
+    require(all(r[0] == "K" and r[3:5] == ["absent", "present"] for r in rows),
+            "phase 17 TSV: not the k-mer panel's chromosome and alleles")
+    sb = lattice_superblock(KMER_SAMPLES, GRID, config.DEFAULT_SNP_BLOCK)
+    n_sb = -(-len(rows) // sb)
+    require(launches["decode_rotate"] == launches["grid_neg_reml_lattice"] == n_sb
+            and launches["gibbs_sweep_marker"] == launches["gibbs_sweep_block_mvn"] == 0,
+            f"phase 17 launches {launches}: K1 and K2 once per resident superblock of {sb} "
+            f"rows ({n_sb})")
+    errs = hold_launches(kept, "kmer", dev, phase="phase 17")
+    require(set(errs) == {"decode_rotate", "grid_neg_reml_lattice"},
+            f"phase 17: held launches of {sorted(errs)}")
+    say(f"phase 17 gwas stages (s): {stage_line(summary)}; {len(rows)} k-mers x n={KMER_SAMPLES}, "
+        f"launches {launches} ({n_sb} superblock(s) of up to {sb} rows)")
+
+    # the CPU rescan of the first CROSS_SNPS k-mers with the same basis
+    t1 = time.monotonic()
+    raw = load_raw_packed(prefix)
+    y_all, _ = load_phenotype(pheno).select(["0"]).align(raw.samples)
+    keep = analysis_sample_index(y_all[:, 0])
+    qc = QcParams()
+    K = load_or_build_grm(prefix, raw.prepare(qc), qc.maf, qc.geno)
+    pg = raw.prepare(qc, sample_idx=keep)
+    basis = eigh_grm(K[np.ix_(keep, keep)], diag_ridge=1e-6)
+    k = min(CROSS_SNPS, pg.m)
+    res, null = lmm_scan(pg.take_snps(np.arange(k)), basis, y_all[keep, 0], device="cpu")
+    require([r[2] for r in rows[:k]] == list(res.sites.snp), "phase 17 rescan: SNP rows differ")
+    row_of = kmer_rows(kmer_codes([r[2] for r in rows], KMER_K), codes)
+    require(bool((row_of >= 0).all()), "phase 17: a TSV k-mer is not in the kmerge matrix")
+    groups = pattern_groups(P[row_of[:k]])
+    dmax = agree_groups([float(r[10]) for r in rows[:k]], res.pwald, groups,
+                        "phase 17 cpu rescan", 0.05)
+    lam = summary["runs"][0]["lambda_null"]
+    rel = abs(null.lbd - lam) / lam
+    require(rel <= 2e-3, f"phase 17 rescan λ_null {null.lbd:.6g} vs {lam:.6g}")
+    say(f"phase 17 cpu rescan of {k} k-mers: max Δ(-log10 p)={dmax:.3g}, top-5 tests equal, "
+        f"λ_null card={lam:.6g} cpu={null.lbd:.6g} (rel {rel:.2g}); "
+        f"{time.monotonic() - t1:.2f} s")
+
+    # recovery: each planted site reaches p < 1e-6 at a k-mer that spans it,
+    # and the top hit spans a planted site
+    p = np.array([float(r[10]) for r in rows])
+    p_row = np.full(len(codes), np.inf)
+    p_row[row_of] = p
+    site_p = np.where(site_rows >= 0, p_row[np.maximum(site_rows, 0)], np.inf).min(1)
+    top_row = row_of[int(np.argmin(p))]
+    top_sites = np.nonzero((site_rows == top_row).any(1))[0]
+    require(bool((site_p[causal] < 1e-6).all()),
+            f"phase 17 recovery: planted sites' best p {site_p[causal].tolist()}")
+    require(len(top_sites) == 1 and top_sites[0] in causal,
+            f"phase 17 recovery: the top hit spans sites {top_sites.tolist()}")
+    say(f"phase 17 recovery: planted sites' best p {np.array2string(site_p[causal], precision=3)}"
+        f"; the top hit (p={p.min():.3g}) spans planted site {int(top_sites[0])}")
+
+    walls["webui_job"] = run_webui_job(kd, prefix, pheno, rows, smi)
+    t1 = time.monotonic()
+    run_baseline(cpu, dev, smi)
+    walls["baseline"] = time.monotonic() - t1
+    wall = time.monotonic() - t0
+    say(f"phase 17 walls ({smi}): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items())
+        + f"; phase {wall:.2f} s of its {KMER_BUDGET_S:.0f} s budget; beside phases 2-16: "
+        + ", ".join(f"{a}={got[a][1]:.2f}" for a in ("kmer", "kmerge", "kstats")))
+    return {"kmer": launches}, {"kmer": errs}
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -3017,52 +3509,73 @@ def main() -> int:
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}; TF32 off")
 
-    with tempfile.TemporaryDirectory(prefix="jx_smoke_") as d:
-        t0 = time.monotonic()
-        k = check_kernels(dev, write_panel_async(d, M_SNPS))
-        walls = {"kernels": time.monotonic() - t0}
-        t0 = time.monotonic()
-        prefix, pheno, rows, summary, launches, qtl_ids, Y, gv = run_main_path(d, M_SNPS,
-                                                                            k["panel"])
-        cpu = cross_check(prefix, pheno, rows, summary)
-        rescan_default(rows, cpu, dev)
-        walls["lmm"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        paths = {"lmm": launches,
-                 "trait_level": run_trait_level(d, prefix, Y, rows, cpu)}
-        walls["trait_level"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        paths["brent"] = run_routes(d, prefix, pheno, rows, qtl_ids, Y, cpu)
-        walls["routes"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        paths["lowrank"] = run_lowrank_sparse(d, prefix, pheno, rows, qtl_ids, cpu)
-        walls["lowrank_sparse"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        paths["gs"] = run_gs_phase(d, prefix, pheno, gv, cpu, dev, smi)
-        walls["gs"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        paths["structure"] = run_structure_phase(d, prefix, pheno, qtl_ids, cpu, dev)
-        walls["structure"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        paths["bayes"], gibbs = run_bayes_phase(d, prefix, pheno, cpu, dev, smi)
-        walls["bayes"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        paths["population"] = run_pop_phase(d, dev)
-        walls["population"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        epi_paths, held_errs = run_epistasis_phase(d, prefix, rows, cpu, dev, smi)
-        paths.update(epi_paths)
-        walls["epistasis"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        tool_paths, tool_errs = run_tools_phase(d, prefix, pheno,
-                                                os.path.join(d, "out12", "jx.cGRM.npy"), dev, smi)
-        paths.update(tool_paths)
-        held_errs.update(tool_errs)
-        walls["tools"] = time.monotonic() - t0
+    natives = native_builds()  # phase 17's host libraries, built beside nvcc
+    try:
+        with tempfile.TemporaryDirectory(prefix="jx_smoke_") as d:
+            pipeline = KmerPipeline(d, natives)
+            try:
+                return run_phases(d, dev, smi, pipeline)
+            finally:
+                pipeline.stop()
+    finally:
+        for _, proc in natives:
+            proc.wait()
+
+
+def run_phases(d: str, dev, smi: str, pipeline: KmerPipeline) -> int:
+    """Phases 2-17, then phase 10's lines."""
+    import torch
+
+    t0 = time.monotonic()
+    k = check_kernels(dev, write_panel_async(d, M_SNPS))
+    walls = {"kernels": time.monotonic() - t0}
+    t0 = time.monotonic()
+    prefix, pheno, rows, summary, launches, qtl_ids, Y, gv = run_main_path(d, M_SNPS,
+                                                                           k["panel"])
+    cpu = cross_check(prefix, pheno, rows, summary)
+    rescan_default(rows, cpu, dev)
+    walls["lmm"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paths = {"lmm": launches,
+             "trait_level": run_trait_level(d, prefix, Y, rows, cpu)}
+    walls["trait_level"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paths["brent"] = run_routes(d, prefix, pheno, rows, qtl_ids, Y, cpu)
+    walls["routes"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paths["lowrank"] = run_lowrank_sparse(d, prefix, pheno, rows, qtl_ids, cpu)
+    walls["lowrank_sparse"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paths["gs"] = run_gs_phase(d, prefix, pheno, gv, cpu, dev, smi)
+    walls["gs"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paths["structure"] = run_structure_phase(d, prefix, pheno, qtl_ids, cpu, dev)
+    walls["structure"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paths["bayes"], gibbs = run_bayes_phase(d, prefix, pheno, cpu, dev, smi)
+    walls["bayes"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paths["population"] = run_pop_phase(d, dev)
+    walls["population"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    epi_paths, held_errs = run_epistasis_phase(d, prefix, rows, cpu, dev, smi)
+    paths.update(epi_paths)
+    walls["epistasis"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    tool_paths, tool_errs = run_tools_phase(d, prefix, pheno,
+                                            os.path.join(d, "out12", "jx.cGRM.npy"), dev, smi)
+    paths.update(tool_paths)
+    held_errs.update(tool_errs)
+    walls["tools"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    kmer_paths, kmer_errs = run_kmer_phase(pipeline, cpu, dev, smi)
+    paths.update(kmer_paths)
+    held_errs.update(kmer_errs)
+    walls["kmer"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
     # the largest |error| of the path's own launches against the plain
-    # version (hold_launches), by phase 15's and 16's paths that launched the kernel
+    # version (hold_launches), by phase 15's, 16's and 17's paths that launched the kernel
     held_by = lambda name: {p: e[name] for p, e in held_errs.items() if name in e}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]
     k2t, k2td = k["k2t"]["highest"], k["k2t"]["default"]

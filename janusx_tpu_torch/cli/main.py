@@ -1,7 +1,7 @@
 """`jx` dispatcher of the port: ``python -m janusx_tpu_torch.cli.main
-<module> ...`` and its sub-entries (``gblupbench``, ``bayesbench``,
-``garfieldbench``). ROADMAP.md lists the reference's modules that are
-still to come."""
+<module> ...`` and its sub-entries (``kmerge``, ``kstats``, ``gblupbench``,
+``bayesbench``, ``garfieldbench``): every module, sub-entry and alias of
+the reference's dispatcher."""
 
 from __future__ import annotations
 
@@ -35,10 +35,19 @@ _MODULES: dict[str, tuple[str, str]] = {
     "garfield": ("janusx_tpu_torch.cli.garfield", "Logic-rule (epistasis) association search"),
     "postgarfield": ("janusx_tpu_torch.cli.postgarfield", "GARFIELD rule plots"),
     "benchmark": ("janusx_tpu_torch.cli.benchmark", "Time core kernels on simulated data"),
+    "bsa": ("janusx_tpu_torch.cli.bsa", "Bulked-segregant analysis preprocessing"),
+    "postbsa": ("janusx_tpu_torch.cli.postbsa", "BSA thresholds (CI/G' FDR) + genome plots"),
+    "webui": ("janusx_tpu_torch.cli.webui", "Local web UI: history dashboard + job manager"),
+    "kmer": ("janusx_tpu_torch.cli.kmer", "Count k-mers per sample (native C++)"),
+    "fastq2vcf": ("janusx_tpu_torch.cli.fastq2vcf", "Reads-to-variants pipeline (external tools)"),
+    "fastq2count": ("janusx_tpu_torch.cli.fastq2count",
+                    "RNA-seq reads-to-counts pipeline (external tools)"),
 }
 
 # secondary entry points living inside a module file
 _SUBENTRY = {
+    "kmerge": ("janusx_tpu_torch.cli.kmer", "kmerge_main", "Merge k-mer counts to a presence matrix"),
+    "kstats": ("janusx_tpu_torch.cli.kmer", "kstats_main", "K-mer count statistics"),
     "gblupbench": ("janusx_tpu_torch.cli.benchmark", "gblupbench_main",
                    "GBLUP/rrBLUP route timing + accuracy benchmark"),
     "bayesbench": ("janusx_tpu_torch.cli.benchmark", "bayesbench_main",
@@ -72,8 +81,7 @@ def main(argv=None) -> int:
         return int(getattr(importlib.import_module(modpath), fn)(argv[1:]) or 0)
     entry = _MODULES.get(name)
     if entry is None:
-        print(f"module {argv[0]} is not ported to janusx_tpu_torch yet\n\n{_help()}",
-              file=sys.stderr)
+        print(f"unknown module: {argv[0]}\n\n{_help()}", file=sys.stderr)
         return 2
     return int(importlib.import_module(entry[0]).main(argv[1:]) or 0)
 

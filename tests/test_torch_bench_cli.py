@@ -96,6 +96,6 @@ def test_garfieldbench(tmp_path):
 def test_sub_entries_listed():
     from janusx_tpu_torch.cli.main import _help
 
-    assert set(_SUBENTRY) == {"gblupbench", "bayesbench", "garfieldbench"}
+    assert set(_SUBENTRY) == {"kmerge", "kstats", "gblupbench", "bayesbench", "garfieldbench"}
     assert all(name in _help() for name in (*_SUBENTRY, "garfield", "postgarfield",
                                             "benchmark"))
