@@ -48,7 +48,7 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
  7. the trait-level path on the same panel: five traits (phase 5's, three
     more polygenic ones, one of noise that the switch test sends to LM)
     through ``jx gwas -lm -lmm -lmm2 -fvlmm -trait-level`` without
-    -force-model; checks that the noise trait ran as LM, that K1 and K2
+    -force-model, scanning chromosomes 1-5 (``-bimrange``); checks that the noise trait ran as LM, that K1 and K2
     launched once per superblock for the whole trait batch, that the
     trait-level TSVs are rectangular, that phase 5's trait agrees with
     phase 5's TSV (Δ(-log10 p) <= 5e-3), and a CPU rescan of the first
@@ -219,7 +219,28 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     (the two λ* within twice the Brent tolerance, beta/se within rtol 2e-2
     of the port's f64 epilogue at the baseline's λ*, Δ(-log10 p) < 5e-2)
     with both SNPs/s; prints each command's wall and the phase's against its 150 s
-    budget.
+    budget;
+18. (run before phase 10's lines) the multi-device path on the one card.
+    (b) starts first and runs beside (a): two tests/torch_dist_worker.py
+    processes joined by gloo run ``distributed_grm`` on phase 5's QC'd
+    panel and ``distributed_scan`` of ``lmm_scan`` with phase 6's basis and
+    trait (saved as .npy), and two ``jx grm --distributed`` processes
+    build the GRM; the GRMs within rtol 1e-5 / atol 1e-4 of the
+    single-process ones (tests/test_sharding.py:537), the scan within (a)'s
+    bounds; each child has a time limit. (a) a mesh of two shards on the
+    card: the sharded GRM (one cross-shard sum) within rtol 1e-5 / atol
+    1e-5 of one device's, its f32 accumulator within the same bound of the
+    f64 build; ``lmm_scan`` and ``lmm_scan_multi`` (T = 4) against one
+    device (beta/se rtol 2e-3 / atol 1e-6, Δ(-log10 p) <= 5e-3,
+    tests/test_sharding.py:82-84, 145; whether bit-equal printed) and
+    phase 5's TSV, K1 and K2 launched once per shard per superblock, each
+    shard's first launch per shape held against its plain version;
+    lm, fvlmm, -lowrank, -splmm, -splmm-exact, -lm2, -fvlmm2 and ALGWAS on
+    phase 8's window with the mesh against one device; ``jx gwas
+    -bimrange WINDOW -lm -lmm -fvlmm`` on phase 15's chromosome-1 panel
+    with JX_TPU_DEVICES=2 and the dispatcher seeing two devices, against
+    the same command on one device; prints the phase's wall against its
+    90 s budget.
 """
 
 from __future__ import annotations
@@ -250,6 +271,7 @@ GRID = 256
 TRAITS = ("test0", "t1", "t2", "t3", "flat")  # the trait-level phenotype
 MODELS = ("lm", "lmm", "lmm2", "fvlmm")
 WINDOW = "1:0.1-1.6"  # -bimrange of phase 8: ~29,580 SNPs of chromosome 1
+TRAIT_LEVEL_CHROMS = 5  # phase 7 scans chromosomes 1-5 of 19 (~158,000 SNPs)
 LOWRANK_Q = 1000  # -lowrank's kinship SNPs in phase 9: rank k = 1000 < n
 HEADER = "chrom\tpos\tsnp\tallele0\tallele1\taf\tmiss\tbeta\tse\tchisq\tpwald"
 # every kernel's wrapper (ops/kernels.py launch_counts), each with no launch
@@ -858,15 +880,21 @@ def write_traits(prefix: str, Y, cpu) -> tuple:
 
 def run_trait_level(d: str, prefix: str, Y, rows5, cpu) -> dict:
     """Phase 7: ``jx gwas -lm -lmm -lmm2 -fvlmm -trait-level`` over five
-    traits (no -force-model) on the whole panel. Returns the launches."""
+    traits (no -force-model), scanning the panel's first TRAIT_LEVEL_CHROMS
+    chromosomes (-bimrange; the GRM from the whole panel). Returns the
+    launches."""
     from janusx_tpu_torch.models import fvlmm, lm, lmm
     from janusx_tpu_torch.models.lmm import lattice_superblock
 
     t0 = time.monotonic()
     pheno, Y = write_traits(prefix, Y, cpu)
     out = os.path.join(d, "out7")
+    chroms = [str(c) for c in range(1, TRAIT_LEVEL_CHROMS + 1)]
+    ranges = [a for c in chroms for a in ("-bimrange", f"{c}:0-{M_SNPS * 50 / 1e6:g}")]
+    rows5 = [r for r in rows5 if r[0] in chroms]
     _, wall, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lm", "-lmm",
-                                 "-lmm2", "-fvlmm", "-trait-level", "-o", out], "phase 7")
+                                 "-lmm2", "-fvlmm", "-trait-level", *ranges, "-o", out],
+                                "phase 7")
     with open(os.path.join(out, "jx.gwas.summary.json")) as fh:
         summary = json.load(fh)
     runs = {(r["trait"], r["requested"]): r for r in summary["runs"]}
@@ -917,7 +945,8 @@ def run_trait_level(d: str, prefix: str, Y, rows5, cpu) -> dict:
                 if col in header.split("\t"):
                     worst = max(worst, agree(p_col(rows, header, col), getattr(r, col),
                                              f"phase 7 {t} {tag} {col}", 0.05))
-    say(f"phase 7 trait-level: {len(TRAITS)} traits x {len(MODELS)} models, "
+    say(f"phase 7 trait-level: {len(TRAITS)} traits x {len(MODELS)} models on chromosomes "
+        f"1-{TRAIT_LEVEL_CHROMS} ({m} SNPs), "
         f"{TRAITS[-1]} switched to LM, launches {launches} ({sb4} T=4 superblocks), "
         f"test0 vs phase 5 max Δ(-log10 p)={d5:.3g}; cpu rescan of {k} SNPs, every "
         f"model: max Δ(-log10 p)={worst:.3g}, top-5 equal ({time.monotonic() - t1:.2f} s); "
@@ -2044,16 +2073,17 @@ HELD_PER_KERNEL = 3  # launches kept per kernel and path, the first at each shap
 
 class _Held:
     """A kernel wrapper that, while a path runs, keeps a copy of the
-    arguments and results of its first launch at each shape and mode (at
-    most HELD_PER_KERNEL), for hold_launches(). Its launch count is the
+    arguments and results of its first ``per_shape`` launches at each
+    shape and mode (at most HELD_PER_KERNEL shapes), for hold_launches().
+    Its launch count is the
     wrapper's own: the wrapper counts through its module's name, which
     then names this object."""
 
-    def __init__(self, fn, kept: list):
+    def __init__(self, fn, kept: list, per_shape: int = 1):
         import inspect
 
         self.fn, self.kept, self.__name__ = fn, kept, fn.__name__
-        self.sig, self.keys = inspect.signature(fn), set()
+        self.sig, self.keys, self.per_shape = inspect.signature(fn), {}, per_shape
 
     launches = property(lambda self: self.fn.launches,
                         lambda self, v: setattr(self.fn, "launches", v))
@@ -2065,14 +2095,14 @@ class _Held:
         args.apply_defaults()
         key = tuple(tuple(v.shape) if torch.is_tensor(v) else v
                     for n, v in args.arguments.items() if not n.endswith("_split"))
-        if (not a[0].is_cuda or key in self.keys
-                or len(self.keys) >= HELD_PER_KERNEL):
+        if (not a[0].is_cuda or self.keys.get(key, 0) >= self.per_shape
+                or sum(self.keys.values()) >= HELD_PER_KERNEL * self.per_shape):
             return self.fn(*a, **k)
         copy = {n: v.clone() if torch.is_tensor(v) else v for n, v in args.arguments.items()}
         before = self.fn.launches
         out = self.fn(*a, **k)
         if self.fn.launches > before:
-            self.keys.add(key)
+            self.keys[key] = self.keys.get(key, 0) + 1
             after = {n: args.arguments[n].clone() for n in ("beta", "var_b", "r")
                      if n in args.arguments}
             self.kept.append((self.__name__, copy, None if out is None else out.clone(), after))
@@ -2080,16 +2110,17 @@ class _Held:
 
 
 @contextlib.contextmanager
-def held():
+def held(per_shape: int = 1):
     """Every kernel wrapper replaced by a _Held one while the block runs;
     yields the list of kept launches (name, arguments, result, the Gibbs
-    state after)."""
+    state after): the first ``per_shape`` launches at each shape (phase
+    18's shards launch at one shape each)."""
     from janusx_tpu_torch.ops import kernels
 
     kept, names = [], list(NO_LAUNCHES)
     saved = [getattr(kernels, n) for n in names]
     for n, fn in zip(names, saved):
-        setattr(kernels, n, _Held(fn, kept))
+        setattr(kernels, n, _Held(fn, kept, per_shape))
     try:
         yield kept
     finally:
@@ -3487,6 +3518,315 @@ def run_kmer_phase(pipeline: KmerPipeline, cpu, dev, smi: str) -> tuple:
     return {"kmer": launches}, {"kmer": errs}
 
 
+# ------------------------------------------------------------ phase 18
+MESH_SHARDS = 2  # the mesh of phase 18: two shards, both on the one card
+MESH_BUDGET_S = 90.0
+CHILD_TIMEOUT_S = 240.0  # each child process of phase 18 (b)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_worker():
+    """tests/torch_dist_worker.py as a module (its save_packed)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "torch_dist_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_dist_worker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return path, mod
+
+
+class DistChildren:
+    """Phase 18 (b): two tests/torch_dist_worker.py processes and two
+    ``jx grm --distributed`` processes, each pair a gloo group on a free
+    port of its own, all four on the one card, started together so that
+    they run beside phase 18 (a). ``wait`` gives each child its time
+    limit and raises if one times out or exits non-zero; ``stop`` kills
+    whatever still runs."""
+
+    def __init__(self, d: str, prefix: str, cpu):
+        worker, mod = _dist_worker()
+        self.d = os.path.join(d, "dist")
+        inputs = os.path.join(self.d, "in")
+        t0 = time.monotonic()
+        mod.save_packed(os.path.join(inputs, "full"), cpu["full"])
+        mod.save_packed(os.path.join(inputs, "sub"), cpu["pg"])
+        np.savez(os.path.join(inputs, "scan.npz"), U=cpu["basis"].U, S=cpu["basis"].S,
+                 y=cpu["y"])
+        self.save_s = time.monotonic() - t0
+        # the children run where the smoke runs (main sets JX_TPU_PLATFORM=cuda)
+        env = dict(os.environ, JX_TPU_HISTORY_DB="0",
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.grm_out = os.path.join(self.d, "grm")
+        p1, p2 = _free_port(), _free_port()
+        self.t0 = time.monotonic()
+        self.procs = []
+        for i in range(2):
+            self._start(f"worker{i}", [sys.executable, worker, str(i), "2", str(p1),
+                                       self.d, inputs], env)
+        for i in range(2):
+            self._start(f"grm{i}", [sys.executable, "-m", "janusx_tpu_torch.cli.main", "grm",
+                                    "-bfile", prefix, "--distributed", "-o", self.grm_out],
+                        dict(env, JX_DIST_COORDINATOR=f"127.0.0.1:{p2}", JX_DIST_NPROCS="2",
+                             JX_DIST_PROC_ID=str(i)))
+
+    def _start(self, name, argv, env):
+        log = open(os.path.join(self.d, name + ".log"), "w")
+        self.procs.append((name, subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                                                  env=env, cwd=ROOT), log))
+
+    def wait(self) -> dict:
+        """Each child's output, once all have exited 0; raises otherwise."""
+        out = {}
+        for name, proc, log in self.procs:
+            left = CHILD_TIMEOUT_S - (time.monotonic() - self.t0)
+            try:
+                rc = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"phase 18 child {name} ran past {CHILD_TIMEOUT_S:.0f} s")
+            log.close()
+            with open(log.name) as fh:
+                out[name] = fh.read()
+            require(rc == 0, f"phase 18 child {name} exited {rc}: {out[name][-2000:]}")
+        out["wall"] = time.monotonic() - self.t0
+        return out
+
+    def stop(self) -> None:
+        for _, proc, log in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _sharded_close(one, two, what: str) -> bool:
+    """beta/se rtol 2e-3 / atol 1e-6 and Δ(-log10 p) <= 5e-3
+    (tests/test_sharding.py:82-84, 145); returns whether the two are
+    equal bit for bit."""
+    for f in ("beta", "se"):
+        a, b = getattr(one, f), getattr(two, f)
+        require(np.array_equal(np.isnan(a), np.isnan(b)), f"{what}: {f} NaN lanes differ")
+        ok = np.isfinite(a)
+        bad = np.abs(b[ok] - a[ok]) > 1e-6 + 2e-3 * np.abs(a[ok])
+        require(not bad.any(), f"{what}: {int(bad.sum())} {f} lanes beyond rtol 2e-3 / atol 1e-6")
+    ok = np.isfinite(one.pwald) & (one.pwald > 0)
+    dl = float(np.max(np.abs(np.log10(two.pwald[ok]) - np.log10(one.pwald[ok]))))
+    require(dl <= 5e-3, f"{what}: max Δ(-log10 p) {dl:.3g} > 5e-3")
+    return all(np.array_equal(getattr(one, f), getattr(two, f), equal_nan=True)
+               for f in ("beta", "se", "pwald"))
+
+
+def _mesh_scans(mesh, dev, cpu, Y, rows5) -> tuple:
+    """Phase 18 (a) on the whole panel: the sharded GRM (f64 and f32),
+    lmm_scan and lmm_scan_multi with the mesh against one device. Returns
+    (launches by path, held errors by path, the one-device lmm_scan)."""
+    from janusx_tpu_torch.models import grm as grm_mod
+    from janusx_tpu_torch.models.lmm import lattice_superblock, lmm_scan, lmm_scan_multi
+    from janusx_tpu_torch.ops import kernels
+
+    full, K = cpu["full"], cpu["K"]
+    t1 = time.monotonic()
+    calls = grm_mod.reduce_shards.calls
+    Km = grm_mod.grm_from_packed(full, mesh=mesh)
+    require(grm_mod.reduce_shards.calls - calls == 1, "phase 18 GRM: not one cross-shard sum")
+    gap = float(np.max(np.abs(Km - K) - 1e-5 * np.abs(K)))
+    require(gap <= 1e-5, f"phase 18 sharded GRM vs one device: {gap:.3g} over rtol 1e-5")
+    # the f32 accumulator: the reference has no test of it; rtol 1e-5 /
+    # atol 1e-5 (tests/test_sharding.py:46) bounds ~20 f32 superblock adds
+    K32 = grm_mod.grm_from_packed(full, dtype=np.float32, mesh=mesh)
+    gap32 = float(np.max(np.abs(K32 - K) - 1e-5 * np.abs(K)))
+    require(gap32 <= 1e-5, f"phase 18 f32-accumulated GRM vs f64: {gap32:.3g} over rtol 1e-5")
+    say(f"phase 18 GRM on {MESH_SHARDS} shards at {full.m} SNPs x {full.n}: one cross-shard "
+        f"sum, max |K - K_1| {float(np.max(np.abs(Km - K))):.3g}; f32 accumulator max |K - K64| "
+        f"{float(np.max(np.abs(K32 - K))):.3g}; {time.monotonic() - t1:.2f} s")
+
+    pg, basis, y = cpu["pg"], cpu["basis"], cpu["y"]
+    paths, errs, same, ones = {}, {}, {}, {}
+    for name, T in (("mesh_lmm", 1), ("mesh_lmm_multi", 4)):
+        t1 = time.monotonic()
+        if T == 1:
+            run = lambda **kw: [lmm_scan(pg, basis, y, **kw)[0]]
+        else:
+            run = lambda **kw: lmm_scan_multi(pg, basis, Y[cpu["keep"]][:, :T], **kw)[0]
+        one = ones[name] = run(device=dev)
+        kernels.reset_launches()
+        with held(per_shape=MESH_SHARDS) as kept:
+            two = run(mesh=mesh)
+        paths[name] = kernels.launch_counts()
+        sb = -(-pg.m // lattice_superblock(N_PHENO, GRID, 2048, traits=T))
+        want = {**NO_LAUNCHES, "decode_rotate": MESH_SHARDS * sb,
+                "grid_neg_reml_lattice": MESH_SHARDS * sb}
+        require(paths[name] == want, f"phase 18 {name} launches {paths[name]}, expected {want} "
+                                     f"(once per shard per superblock)")
+        errs[name] = hold_launches(kept, name, dev, "phase 18")
+        same[name] = all([_sharded_close(a, b, f"phase 18 {name} trait {t}")
+                          for t, (a, b) in enumerate(zip(one, two))])
+        d5 = agree(two[0].pwald, [float(r[10]) for r in rows5],
+                   f"phase 18 {name} test0 vs phase 5's TSV", 5e-3)
+        say(f"phase 18 {name}: T={T}, {pg.m} SNPs in {sb} superblocks, launches {paths[name]}; "
+            f"vs one device within rtol 2e-3 / Δ(-log10 p) 5e-3, bit for bit equal: "
+            f"{same[name]}; test0 vs phase 5's TSV max Δ(-log10 p) {d5:.3g}; "
+            f"{time.monotonic() - t1:.2f} s")
+    return paths, errs, ones["mesh_lmm"]
+
+
+def _mesh_window(mesh, dev, cpu, prefix) -> None:
+    """Phase 18 (a) on phase 8's window: every other route with the mesh
+    against one device."""
+    from janusx_tpu_torch.io.pheno import load_covariates
+    from janusx_tpu_torch.models import algwas, fastlmm, fvlmm, gxe, lm, splmm
+    from janusx_tpu_torch.workflows.gwas import _range_mask
+
+    t1 = time.monotonic()
+    pg, basis, y, keep = cpu["pg"], cpu["basis"], cpu["y"], cpu["keep"]
+    win = pg.take_snps(_range_mask(pg.sites, (WINDOW,)))
+    cov = load_covariates(prefix + ".cov", np.array([f"ind{j}" for j in range(N_SAMPLES)],
+                                                    object))[keep]
+    Kk = cpu["K"][np.ix_(keep, keep)]
+    lrb = fastlmm.lowrank_basis_from_snps(pg, q=LOWRANK_Q)
+    routes = {
+        "lm": lambda **kw: lm.lm_scan(win, y, **kw),
+        "fvlmm": lambda **kw: fvlmm.fvlmm_scan(win, basis, y, **kw)[0],
+        "lowrank": lambda **kw: fastlmm.fastlmm_scan(win, lrb, y, **kw)[0],
+        "splmm": lambda **kw: splmm.splmm_grammar_scan(win, Kk, y, **kw)[0],
+        "splmm-exact": lambda **kw: splmm.splmm_exact_scan(win, Kk, y, **kw)[0],
+        "lm2": lambda **kw: gxe.gxe_scan(win, y, cov[:, 1], cov[:, :1], **kw)[0],
+        "fvlmm2": lambda **kw: gxe.gxe_scan(win, y, cov[:, 1], cov[:, :1], basis=basis,
+                                            **kw)[0],
+        "algwas": lambda **kw: algwas.algwas_scan(win, y, cov, **kw),
+    }
+    same = {}
+    for name, run in routes.items():
+        one, two = run(device=dev), run(mesh=mesh)
+        if name == "algwas":
+            # a selected QTN is its own covariate: its lane's beta is 0/0 in
+            # f32, held by its refit p-value only
+            require(np.array_equal(one.selected, two.selected),
+                    f"phase 18 algwas selected {two.selected} vs {one.selected}")
+            keep_lanes = np.ones(win.m, bool)
+            keep_lanes[one.selected] = False
+            one, two = (_lanes(r.result, keep_lanes) for r in (one, two))
+        same[name] = _sharded_close(one, two, f"phase 18 window {name}")
+    say(f"phase 18 window {WINDOW} ({win.m} SNPs): lm, fvlmm, lowrank, splmm, splmm-exact, "
+        f"lm2, fvlmm2, algwas with the mesh within rtol 2e-3 / Δ(-log10 p) 5e-3 of one "
+        f"device; bit for bit equal: {same}; {time.monotonic() - t1:.2f} s")
+
+
+def _lanes(res, mask):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(beta=res.beta[mask], se=res.se[mask], pwald=res.pwald[mask])
+
+
+def _mesh_cli(d, pheno, dev) -> dict:
+    """``jx gwas -bimrange WINDOW -lm -lmm -fvlmm`` on phase 15's chromosome
+    1 panel, with JX_TPU_DEVICES=2 and the dispatcher seeing two devices
+    (both the card), against the same command on one device."""
+    from janusx_tpu_torch.parallel import mesh as mesh_mod
+
+    t1 = time.monotonic()
+    chr1 = os.path.join(d, "chr1")
+    require(os.path.exists(chr1 + ".bed"), "phase 18: phase 15's chromosome-1 panel is missing")
+    argv = ["gwas", "-bfile", chr1, "-p", pheno, "-bimrange", WINDOW, "-lm", "-lmm", "-fvlmm",
+            "-n", "0", "-o"]
+    _, wall1, _ = run_cli(argv + [os.path.join(d, "out18one")], "phase 18 one device")
+    seam, os.environ["JX_TPU_DEVICES"] = mesh_mod.visible_devices, str(MESH_SHARDS)
+    mesh_mod.visible_devices = lambda: [dev] * MESH_SHARDS
+    try:
+        _, wall2, launches = run_cli(argv + [os.path.join(d, "out18mesh")], "phase 18 mesh")
+    finally:
+        mesh_mod.visible_devices = seam
+        del os.environ["JX_TPU_DEVICES"]
+    # lm: no kernel; lmm: K1 + K2 per shard; fvlmm: K1 per shard
+    want = {**NO_LAUNCHES, "decode_rotate": 2 * MESH_SHARDS,
+            "grid_neg_reml_lattice": MESH_SHARDS}
+    require(launches == want, f"phase 18 cli launches {launches}, expected {want}")
+    worst = 0.0
+    for tag in ("LM", "LMM", "FvLMM"):
+        header, a = read_tsv(os.path.join(d, "out18one", f"jx.test0.{tag}.assoc.tsv"))
+        header2, b = read_tsv(os.path.join(d, "out18mesh", f"jx.test0.{tag}.assoc.tsv"))
+        require(header == header2 and [r[2] for r in a] == [r[2] for r in b],
+                f"phase 18 cli {tag}: header or SNP rows differ")
+        worst = max(worst, agree(p_col(b, header), p_col(a, header),
+                                 f"phase 18 cli {tag}", 5e-3))
+        # the TSV prints beta at 4 decimal places: one unit of the last is
+        # the absolute floor of a rounding flip
+        beta = [p_col(x, header, "beta") for x in (a, b)]
+        bad = np.abs(beta[1] - beta[0]) > 1e-4 + 2e-3 * np.abs(beta[0])
+        require(not bad.any(), f"phase 18 cli {tag}: {int(bad.sum())} betas beyond rtol 2e-3 "
+                               f"/ atol 1e-4")
+    say(f"phase 18 cli -bimrange {WINDOW} -lm -lmm -fvlmm on chromosome 1: mesh of "
+        f"{MESH_SHARDS} (JX_TPU_DEVICES={MESH_SHARDS}) launches {launches}, TSVs within beta "
+        f"rtol 2e-3 / atol 1e-4 (the printed 4 decimals) and max Δ(-log10 p) {worst:.3g} of "
+        f"one device's; walls one {wall1:.2f} s, "
+        f"mesh {wall2:.2f} s; {time.monotonic() - t1:.2f} s")
+    return launches
+
+
+def _check_children(children: DistChildren, d, cpu, one) -> None:
+    """Phase 18 (b)'s results: the workers' GRM and scan, and ``jx grm
+    --distributed``'s .npy, against the single-process runs."""
+    out = children.wait()
+    for name in ("worker0", "worker1"):
+        line = next((ln for ln in out[name].splitlines() if ln.startswith("DIST_OK")), None)
+        require(line is not None, f"phase 18 {name}: no DIST_OK: {out[name][-1500:]}")
+        say(f"phase 18 two processes over gloo, {line}")
+    res = np.load(os.path.join(children.d, "dist_result.npz"))
+    K = cpu["K"]
+    gap = float(np.max(np.abs(res["K"] - K) - 1e-5 * np.abs(K)))
+    require(gap <= 1e-4, f"phase 18 distributed_grm vs one process: {gap:.3g} over rtol 1e-5 "
+                         f"/ atol 1e-4")
+    from types import SimpleNamespace
+
+    two = SimpleNamespace(beta=res["beta"], se=res["se"], pwald=res["pwald"])
+    same = _sharded_close(one[0], two, "phase 18 distributed_scan vs one process")
+    K12 = np.load(os.path.join(d, "out12", "jx.cGRM.npy"))
+    Kc = np.load(os.path.join(children.grm_out, "jx.cGRM.npy"))
+    gapc = float(np.max(np.abs(Kc - K12) - 1e-5 * np.abs(K12)))
+    require(gapc <= 1e-4, f"phase 18 jx grm --distributed vs phase 12's jx grm: {gapc:.3g}")
+    say(f"phase 18 distributed: GRM max |K - K_1| {float(np.max(np.abs(res['K'] - K))):.3g}, "
+        f"scan of {len(two.beta)} SNPs within rtol 2e-3 / Δ(-log10 p) 5e-3 of one process "
+        f"(bit for bit: {same}); jx grm --distributed rank 0's .npy max |K - K_12| "
+        f"{float(np.max(np.abs(Kc - K12))):.3g}; inputs saved in {children.save_s:.2f} s, the "
+        f"four children {out['wall']:.2f} s beside (a)")
+
+
+def run_mesh_phase(d, prefix, pheno, rows5, Y, cpu, dev, smi) -> tuple:
+    """Phase 18: the multi-device path on the one card. (b)'s four child
+    processes start first and run beside (a): a mesh of MESH_SHARDS shards
+    on the card through the GRM, the LMM scans, every other route on phase
+    8's window and the dispatcher. Returns (launches by path, held errors
+    by path)."""
+    import torch
+
+    from janusx_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.monotonic()
+    children = DistChildren(d, prefix, cpu)
+    try:
+        mesh = Mesh([dev] * MESH_SHARDS)
+        paths, errs, one = _mesh_scans(mesh, dev, cpu, Y, rows5)
+        _mesh_window(mesh, dev, cpu, prefix)
+        paths["mesh_cli"] = _mesh_cli(d, pheno, dev)
+        t1 = time.monotonic()
+        _check_children(children, d, cpu, one)
+        wait = time.monotonic() - t1
+    finally:
+        children.stop()
+    torch.cuda.empty_cache()
+    wall = time.monotonic() - t0
+    say(f"phase 18 ({smi}): waited {wait:.2f} s for (b) after (a); phase {wall:.2f} s of its "
+        f"{MESH_BUDGET_S:.0f} s budget")
+    return paths, errs
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -3523,7 +3863,7 @@ def main() -> int:
 
 
 def run_phases(d: str, dev, smi: str, pipeline: KmerPipeline) -> int:
-    """Phases 2-17, then phase 10's lines."""
+    """Phases 2-18, then phase 10's lines."""
     import torch
 
     t0 = time.monotonic()
@@ -3572,6 +3912,11 @@ def run_phases(d: str, dev, smi: str, pipeline: KmerPipeline) -> int:
     paths.update(kmer_paths)
     held_errs.update(kmer_errs)
     walls["kmer"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    mesh_paths, mesh_errs = run_mesh_phase(d, prefix, pheno, rows, Y, cpu, dev, smi)
+    paths.update(mesh_paths)
+    held_errs.update(mesh_errs)
+    walls["mesh"] = time.monotonic() - t0
     say("phase walls (s): " + ", ".join(f"{a}={b:.2f}" for a, b in walls.items()))
     by_path = lambda name: {p: c[name] for p, c in paths.items()}
     # the largest |error| of the path's own launches against the plain

@@ -3,8 +3,9 @@
 A second package beside the JAX reference: the same CLI surface, QC rules,
 statistics and TSV output, with each Pallas kernel on the ported path, and
 each sweep of the Bayes samplers, written by hand as a CUDA C++ kernel for
-sm_90a (csrc/). It imports torch, numpy and scipy, never jax. Ported so
-far: every ``jx gwas`` route but the multi-device ``mesh``, and ``jx gs``
+sm_90a (csrc/). It imports torch, numpy and scipy, never jax. Ported:
+every ``jx gwas`` route, on one card or SNP-sharded over several
+(``parallel``; ``jx grm --distributed`` over several processes), ``jx gs``
 (BLUP, GBLUP, rrBLUP exact and PCG, GBLUPd/ad, the HE pre-fit, ``-hash``,
 the TOP bundle, effect and model export, BayesA/B/Cπ) with ``jx
 gspredict``, ``jx grm``, ``jx pca``, ``jx gstats`` (site/sample tables, LD
@@ -15,8 +16,8 @@ bayesbench`` and ``jx garfieldbench``, the genotype tools and validation
 CLIs (``jx sim``, ``jx gformat``, ``jx gmerge``, ``jx view``, ``jx
 refcheck``, ``jx hybrid``, ``jx reml``, ``jx postgwas``, ``jx postgs``,
 ``jx treeplot``, ``jx env``, ``jx ggval``), the WGCNA helpers (``gtools``)
-and the in-memory API (``api.ASSOC``, ``api.GenomicSelection``).
-ROADMAP.md lists what remains.
+and the in-memory API (``api.ASSOC``, ``api.GenomicSelection``): every
+module of janusx_tpu. ROADMAP.md lists the work that remains.
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,9 @@ decoded and multiplied on the device. Outputs {out}/{prefix}.cGRM.npy
 the CSC `.spgrm` (.jxgrm format) with off-diagonals |k| >= cutoff
 (negative cutoff keeps everything). `-k dense.npy -sparse` converts an
 existing dense GRM. `-txt` writes plain text instead of NPY.
-`--distributed` (a multi-host build) is not ported: it raises
-NotImplementedError (ROADMAP queue 1, the `mesh` item).
+`--distributed` builds the GRM over several processes (parallel.distributed,
+gloo): JX_DIST_COORDINATOR (host:port), JX_DIST_NPROCS and JX_DIST_PROC_ID,
+or a torchrun launch; only process 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -166,9 +167,22 @@ def main(argv=None) -> int:
         return 0
     t0 = time.monotonic()
     if args.distributed:
-        raise NotImplementedError(
-            "jx grm --distributed (a multi-host GRM build) is not ported to "
-            "janusx_tpu_torch yet (ROADMAP queue 1, the mesh item)")
+        from janusx_tpu_torch.parallel import distributed as dist
+
+        # the env-variable path below covers explicit multi-process
+        # launches; under torchrun (MASTER_ADDR, RANK, WORLD_SIZE set)
+        # initialize needs no args
+        coord = os.environ.get("JX_DIST_COORDINATOR")
+        dist.initialize(
+            coordinator=coord,
+            num_processes=(int(os.environ["JX_DIST_NPROCS"])
+                           if coord else None),
+            process_id=(int(os.environ["JX_DIST_PROC_ID"])
+                        if coord else None),
+        )
+        K = dist.distributed_grm(pg, method=args.method)
+        if dist.process_index() != 0:
+            return 0  # only the lead process writes outputs
     else:
         K = grm_from_packed(pg, method=args.method)
     t_compute = time.monotonic() - t0

@@ -11,7 +11,7 @@ import sys
 from janusx_tpu_torch import __version__
 
 _MODULES: dict[str, tuple[str, str]] = {
-    "gwas": ("janusx_tpu_torch.cli.gwas", "GWAS scans (every jx gwas route but the multi-device mesh)"),
+    "gwas": ("janusx_tpu_torch.cli.gwas", "GWAS scans: lm/lmm/lmm2/fvlmm/splmm/farmcpu"),
     "gs": ("janusx_tpu_torch.cli.gs", "Genomic selection: BLUP/GBLUP/rrBLUP/Bayes"),
     "grm": ("janusx_tpu_torch.cli.grm", "Genomic relationship matrix"),
     "pca": ("janusx_tpu_torch.cli.pca", "Principal components (eigh or randomized SVD)"),

@@ -3,7 +3,7 @@
 Mirrors ``janusx_tpu/config.py``: the same ``JX_*`` knobs wherever their
 meaning carries over, so one environment drives both packages. Knobs that
 only steered XLA/Pallas (compile cache, the Pallas switches, the VMEM lane
-cap, x64 mode, device meshes) have no counterpart here.
+cap, x64 mode) have no counterpart here.
 
 Precision policy (the reference's, kept so the parity tests compare like
 with like): genotype decode, the rotation kernel, the lambda lattice and
@@ -64,6 +64,7 @@ def cache_dir_override() -> str | None:
 # Expert env-knob registry: name -> (type, default, help); None = "auto".
 KNOBS: dict = {
     "JX_TPU_PLATFORM": (str, None, "device: cpu pins the CPU (plain PyTorch); anything else or unset means cuda (raises without a card)"),
+    "JX_TPU_DEVICES": (int, None, "cap the number of devices used on the 'snp' mesh axis"),
     "JX_TPU_SNP_BLOCK": (int, 2048, "SNP rows per device block in streamed kernels"),
     "JX_TPU_SCAN_METHOD": (str, "grid", "LMM per-SNP lambda search: grid | brent"),
     "JX_TPU_SCAN_BRENT_TOL": (float, 1e-2, "per-SNP Brent tolerance (reference lmm.rs:334)"),

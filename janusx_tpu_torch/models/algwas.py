@@ -28,8 +28,8 @@ from janusx_tpu_torch import config
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.farmcpu import _decode_rows, _qtn_pvalues
 from janusx_tpu_torch.models.lm import lm_scan
-from janusx_tpu_torch.models.lmm import _no_mesh
 from janusx_tpu_torch.models.scan_common import ScanResult
+from janusx_tpu_torch.parallel.mesh import home_device
 
 PATH_STEPS = 64
 LAMBDA_MIN_RATIO = 1e-3
@@ -136,9 +136,9 @@ def algwas_scan(
 ) -> AlgwasResult:
     """pg_qtn (reference -qbfile/-qvcf/...): an alternate panel for the
     stage-1 lasso QTN search; the stage-2 conditional scan still runs on
-    the main panel. `selected` then indexes the QTN panel."""
-    _no_mesh(mesh)
-    dev = config.resolve_device(device)
+    the main panel. `selected` then indexes the QTN panel. ``mesh``: the
+    stage-2 conditional scan (the O(m) pass) SNP-shards across the mesh."""
+    dev = home_device(mesh, device)
     y = np.asarray(y, np.float64).reshape(-1)
     pgq = pg if pg_qtn is None else pg_qtn
     n, m = pg.n, pgq.m
@@ -197,7 +197,7 @@ def algwas_scan(
     if len(selected):
         Zsel = _decode_rows(pgq, selected).T
         cov2 = Zsel if cov2 is None else np.concatenate([cov2, Zsel], axis=1)
-    res = lm_scan(pg, y, cov2, block=block, device=dev)
+    res = lm_scan(pg, y, cov2, block=block, mesh=mesh, device=dev)
     if len(selected) and pg_qtn is None:
         # QTN rows get conditional refit stats only when they live in the
         # scanned panel (indices refer to the QTN panel otherwise)

@@ -52,10 +52,11 @@ from janusx_tpu_torch import config
 from janusx_tpu_torch.core import stats as jstats
 from janusx_tpu_torch.core.reml import GridShared, NullFit, grid_argmin_schur
 from janusx_tpu_torch.io.packed import PackedGenotypes
-from janusx_tpu_torch.models.lmm import _no_mesh, lattice_superblock
+from janusx_tpu_torch.models.lmm import lattice_superblock
 from janusx_tpu_torch.models.scan_common import ScanResult, finalize_invalid
-from janusx_tpu_torch.models.superblocks import stream
+from janusx_tpu_torch.models.superblocks import replicas, scan_resident, stream
 from janusx_tpu_torch.ops import decode, kernels
+from janusx_tpu_torch.parallel.mesh import home_device
 from janusx_tpu_torch.utils import devcache
 
 _BAD = 1e8
@@ -546,11 +547,11 @@ def fastlmm_scan(
     ``rot``/``null`` accept a precomputed rotation and null fit (the
     workflow computes both for the LMM->LM switch). The grid-shared state
     and the (n, k) Uk upload are made once per call (one trait) and carried
-    through every superblock."""
-    _no_mesh(mesh)
+    through every superblock. With ``mesh`` each shard scans its slice of
+    every superblock, K1 at N = k per shard (janusx_tpu's _lr_scan_sharded)."""
     if model not in GENETIC_MODELS:
         raise ValueError(f"unknown genetic model: {model}")
-    dev = config.resolve_device(device)
+    dev = home_device(mesh, device)
     if grid_points is None:
         grid_points = config.knob("JX_TPU_GRID_POINTS")
     if rot is None:
@@ -559,11 +560,7 @@ def fastlmm_scan(
         null, _, _ = fit_null_reml_lr(rot)
     grid_lg = np.linspace(config.LOG10_LAMBDA_LOW, config.LOG10_LAMBDA_HIGH, grid_points)
     sh = _grid_shared_lr(rot, grid_lg, dev)
-    Uk = devcache.to_device(lrb.U, f32, dev)
-    # K1's bf16 pieces of Uk, made once per basis and device
-    U_split = (devcache.derived(lrb.U, "u_split", dev, lambda: kernels.split_u(Uk))
-               if model == "add" else None)
-    cs = _lr_consts(rot, Uk, dev)
+    cs = _lr_consts(rot, devcache.to_device(lrb.U, f32, dev), dev)
     n = pg.n
     block = min(block, pg.m) if pg.m else block
     rows = max(block, _LATTICE_CHUNK_BYTES // ((2 + rot.p) * max(lrb.k, grid_points) * 4)
@@ -571,11 +568,17 @@ def fastlmm_scan(
     extras = ({"lambda_null": null.lbd, "ml_null": null.ml, "rank": lrb.k} if lmm2
               else {"lambda_null": null.lbd, "rank": lrb.k})
 
+    reps = replicas((cs, sh), mesh)
+
+    def compute(i, pk, mn, d):
+        cs_d, sh_d = reps[i]
+        # K1's bf16 pieces of Uk, made once per basis and device
+        U_split = (devcache.derived(lrb.U, "u_split", d, lambda: kernels.split_u(cs_d.Uk))
+                   if model == "add" else None)
+        return (_scan_chunk(pk, n, model, cs_d, U_split, sh_d, lmm2, rows),)
+
     def chunk(sub):
-        m = sub.m
-        pk = devcache.device_packed_blocks(sub, (-(-m // block), block), dev)
-        out = _scan_chunk(pk, n, model, cs, U_split, sh, lmm2, rows)
-        lg, beta, se, ml, ssq = out.cpu().numpy()[:, :m]
+        lg, beta, se, ml, ssq = scan_resident(sub, block, dev, mesh, compute, mean=False)[0]
         pwald = jstats.pwald_from_beta_se(beta, se)
         if lmm2:
             plrt = jstats.plrt_from_ml(ml, null.ml)
@@ -588,4 +591,4 @@ def fastlmm_scan(
                            se=se, pwald=pwald, extras=extras)]
 
     sb = lattice_superblock(n, grid_points, block, superblock)
-    return stream(pg, sb, block, chunk)[0], null
+    return stream(pg, sb, block, chunk, mesh)[0], null

@@ -25,10 +25,11 @@ from janusx_tpu_torch.core import stats as jstats
 from janusx_tpu_torch.core.reml import NullFit, fit_null_reml, make_rotated
 from janusx_tpu_torch.core.spectral import SpectralBasis
 from janusx_tpu_torch.io.packed import PackedGenotypes
-from janusx_tpu_torch.models.lmm import _no_mesh, _upload
+from janusx_tpu_torch.models.lmm import _basis_operands
 from janusx_tpu_torch.models.scan_common import ScanResult, finalize_invalid
-from janusx_tpu_torch.models.superblocks import stream
+from janusx_tpu_torch.models.superblocks import replicas, scan_resident, stream
 from janusx_tpu_torch.ops import kernels
+from janusx_tpu_torch.parallel.mesh import home_device
 
 f32 = torch.float32
 
@@ -50,7 +51,7 @@ def _trait_pieces(basis: SpectralBasis, y, covariates, null: NullFit | None, dev
     return null, w, Xr, Cw, Py, float(yr @ Py)
 
 
-def _fvlmm(pg, basis, Y, covariates, block, nulls, superblock, dev):
+def _fvlmm(pg, basis, Y, covariates, block, nulls, superblock, dev, mesh=None):
     T, n = Y.shape[1], pg.n
     pieces = [_trait_pieces(basis, Y[:, t], covariates,
                             None if nulls is None else nulls[t], dev) for t in range(T)]
@@ -62,22 +63,29 @@ def _fvlmm(pg, basis, Y, covariates, block, nulls, superblock, dev):
         raise ValueError("df <= 0 in fvlmm scan")
     t32 = lambda a: torch.as_tensor(np.asarray(a), dtype=f32, device=dev)
     W32, CW32, PY32 = (t32(np.stack([pc[i] for pc in pieces])) for i in (1, 3, 4))
-    X32 = t32(Xr)
+    reps = replicas((W32, CW32, PY32, t32(Xr)), mesh)
     block = min(block, pg.m) if pg.m else block
 
-    def chunk(pg):
-        m = pg.m
-        pk, mn, U32, U_split = _upload(pg, basis, block, dev)
+    def compute(i, pk, mn, d):
+        W32, CW32, PY32, X32 = reps[i]
+        U32, U_split = _basis_operands(basis, d)
         Gr = kernels.decode_rotate(pk.reshape(-1, pk.shape[-1]), mn.reshape(-1), U32,
                                    U_split=U_split)
-        ssq = torch.sum(Gr * Gr, dim=-1).double().cpu().numpy()[:m]
-        res = []
+        gPy, gPg = [], []
         for t in range(T):
             wG = Gr * W32[t][None, :]
-            gPy = Gr @ PY32[t]
             XWg = wG @ X32
-            gPg = torch.sum(wG * Gr, dim=-1) - torch.einsum("bp,pq,bq->b", XWg, CW32[t], XWg)
-            gPy, gPg = (x.double().cpu().numpy()[:m] for x in (gPy, gPg))
+            gPy.append(Gr @ PY32[t])
+            gPg.append(torch.sum(wG * Gr, dim=-1)
+                       - torch.einsum("bp,pq,bq->b", XWg, CW32[t], XWg))
+        return (torch.sum(Gr * Gr, dim=-1).double(), torch.stack(gPy).double(),
+                torch.stack(gPg).double())
+
+    def chunk(pg):
+        ssq, gPys, gPgs = scan_resident(pg, block, dev, mesh, compute)
+        res = []
+        for t in range(T):
+            gPy, gPg = gPys[t], gPgs[t]
             with np.errstate(divide="ignore", invalid="ignore"):
                 beta = gPy / gPg
                 se = np.sqrt((pieces[t][5] / df) / gPg)
@@ -88,7 +96,7 @@ def _fvlmm(pg, basis, Y, covariates, block, nulls, superblock, dev):
                 extras={"lambda_null": nulls[t].lbd, "reml_null": nulls[t].reml}))
         return res
 
-    return stream(pg, superblock, block, chunk), nulls
+    return stream(pg, superblock, block, chunk, mesh), nulls
 
 
 def fvlmm_scan(
@@ -104,11 +112,10 @@ def fvlmm_scan(
 ) -> tuple[ScanResult, NullFit]:
     """Fixed-λ scan. ``basis`` must be the eigh of the (ridged) GRM on the
     same sample subset as ``pg``."""
-    _no_mesh(mesh)
     y = np.asarray(y, np.float64).reshape(-1)
     res, nulls = _fvlmm(pg, basis, y[:, None], covariates, block,
                         None if null is None else [null], superblock,
-                        config.resolve_device(device))
+                        home_device(mesh, device), mesh)
     return res[0], nulls[0]
 
 
@@ -124,11 +131,10 @@ def fvlmm_scan_multi(
 ) -> tuple[list[ScanResult], list[NullFit]]:
     """Batched fixed-λ scan for traits sharing one sample mask/basis: one
     K1 launch per superblock for all of them."""
-    _no_mesh(mesh)
     Y = np.asarray(Y, np.float64)
     if Y.ndim == 1:
         Y = Y[:, None]
     if Y.shape[0] != pg.n:
         raise ValueError(f"Y rows {Y.shape[0]} != samples {pg.n}")
     return _fvlmm(pg, basis, Y, covariates, block, None, superblock,
-                  config.resolve_device(device))
+                  home_device(mesh, device), mesh)

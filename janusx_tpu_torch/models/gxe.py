@@ -26,10 +26,10 @@ from janusx_tpu_torch.core.reml import NullFit, fit_null_reml, make_rotated
 from janusx_tpu_torch.core.spectral import SpectralBasis
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.lm import design_matrix, student_t_p_two_sided
-from janusx_tpu_torch.models.lmm import _no_mesh
 from janusx_tpu_torch.models.scan_common import ScanResult
+from janusx_tpu_torch.models.superblocks import replicas, scan_resident
 from janusx_tpu_torch.ops.decode import decode_centered
-from janusx_tpu_torch.utils import devcache
+from janusx_tpu_torch.parallel.mesh import home_device
 
 f32, f64 = torch.float32, torch.float64
 
@@ -120,9 +120,9 @@ def gxe_scan(
 ) -> tuple[ScanResult, NullFit | None]:
     """Interaction scan. Plain OLS (lm2) when basis is None; fixed-λ mixed
     (fvlmm2) when an eigenbasis of the GRM subset is supplied, at ``null``'s
-    λ (fitted here when None)."""
-    _no_mesh(mesh)
-    dev = config.resolve_device(device)
+    λ (fitted here when None). With ``mesh`` the per-SNP block stats run
+    SNP-sharded over its 'snp' axis."""
+    dev = home_device(mesh, device)
     y = np.asarray(y, np.float64).reshape(-1)
     # interaction covariate stays RAW: the reference builds z = g * cv from
     # the covariate column as loaded (glm2.rs:216); centering it would shift
@@ -158,14 +158,15 @@ def gxe_scan(
     if not hasattr(pg, "packed"):  # lazy input: materialize
         pg = pg.take_snps(np.arange(m))
     block = min(block, m)
-    nblk = -(-m // block)
-    pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
-    mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
     t64 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=f64, device=dev)
-    consts = (t64(X_use), t64(Cinv), t64(My), t64(cvec),
-              None if Wh is None else t64(Wh.T))
-    stats = torch.cat([_gxe_block(pk[i], mn[i], *consts, n) for i in range(nblk)],
-                      dim=1).cpu().numpy()[:, :m]
+    reps = replicas((t64(X_use), t64(Cinv), t64(My), t64(cvec),
+                     None if Wh is None else t64(Wh.T)), mesh)
+
+    def compute(i, pk, mn, d):
+        return (torch.cat([_gxe_block(pk[b], mn[b], *reps[i], n)
+                           for b in range(pk.shape[0])], dim=1),)
+
+    stats = scan_resident(pg, block, dev, mesh, compute)[0]
 
     (bg, se_g, pw_g, bi, se_i, pw_i, chisq_int, p_int, chisq_joint,
      p_joint) = _finalize_gxe(*stats, yMy, n, p)

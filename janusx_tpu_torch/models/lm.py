@@ -27,9 +27,9 @@ from scipy import special as sp_special
 from janusx_tpu_torch import config
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.scan_common import ScanResult
-from janusx_tpu_torch.models.superblocks import stream
+from janusx_tpu_torch.models.superblocks import scan_resident, stream
 from janusx_tpu_torch.ops.decode import decode_centered
-from janusx_tpu_torch.utils import devcache
+from janusx_tpu_torch.parallel.mesh import home_device
 
 _DBL_MIN = np.finfo(np.float64).tiny
 f32 = torch.float32
@@ -59,8 +59,8 @@ def design_matrix(n: int, covariates: np.ndarray | None) -> np.ndarray:
 
 
 def _lm_grams(pk, mn, X, C, MY, n: int):
-    """f32 grams of pre-blocked (nblk, B, nb) packed rows: g'M_X Y (nblk*B, T)
-    and g'M_X g (nblk*B,), returned as f64."""
+    """f32 grams of pre-blocked (nblk, B, nb) packed rows on their device:
+    g'M_X Y (nblk*B, T) and g'M_X g (nblk*B,), returned as f64."""
     X32, C32, MY32 = (torch.as_tensor(a, dtype=f32, device=pk.device) for a in (X, C, MY))
     gMY, gMg = [], []
     for i in range(pk.shape[0]):
@@ -82,11 +82,10 @@ def lm_scan_multi(
 ) -> list[ScanResult]:
     """Batched multi-trait LM scan: all columns of Y share the sample set
     and covariates; the decode and the X grams are shared, the numerators
-    come from one (B, n) x (n, T) matmul per block."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "SNP-sharded scans are not ported yet (ROADMAP queue 1, item 23)")
-    dev = config.resolve_device(device)
+    come from one (B, n) x (n, T) matmul per block. With ``mesh`` each
+    shard forms the grams of its SNP slice on its device (janusx_tpu's
+    _lm_scan_sharded_multi)."""
+    dev = home_device(mesh, device)
     Y = np.asarray(Y, np.float64)
     if Y.ndim == 1:
         Y = Y[:, None]
@@ -103,14 +102,13 @@ def lm_scan_multi(
     yMy = np.einsum("nt,nt->t", Y, MY)
     block = min(block, pg.m) if pg.m else block
 
-    def chunk(pg):
-        m = pg.m
-        nblk = -(-m // block)
-        pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
-        mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
+    def compute(i, pk, mn, d):
         gMY, gMg = _lm_grams(pk, mn, X, C, MY, n)
-        gMY = gMY.cpu().numpy()[:m]
-        gMg = gMg.cpu().numpy()[:m]
+        return gMY.T, gMg
+
+    def chunk(pg):
+        gMY, gMg = scan_resident(pg, block, dev, mesh, compute)
+        gMY = gMY.T
         results = []
         for t in range(T):
             gMy = gMY[:, t]
@@ -130,7 +128,7 @@ def lm_scan_multi(
             ))
         return results
 
-    return stream(pg, superblock, block, chunk)
+    return stream(pg, superblock, block, chunk, mesh)
 
 
 def lm_scan(

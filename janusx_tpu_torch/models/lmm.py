@@ -16,6 +16,11 @@ covariate columns (beyond the lattice kernel) each SNP block goes K1 ->
 Brent method (``method="brent"``, lmm.py:51-73, 482-507): per SNP block K1
 rotates (f32, then f64), and a lockstep f64 Brent over log10 λ, warm-started
 at λ_null, optimizes the per-SNP REML; beta/se (and ML) come at the optimum.
+
+With a device mesh (parallel.mesh) the grid method shards every resident
+superblock: each shard launches K1 and K2 on its slice on its own device
+(janusx_tpu's ``shard_map`` scans, lmm.py:241, 633); brent runs on one
+device, as the reference's does.
 """
 
 from __future__ import annotations
@@ -46,9 +51,10 @@ from janusx_tpu_torch.core.reml import (
 from janusx_tpu_torch.core.spectral import SpectralBasis
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.scan_common import ScanResult, finalize_invalid
-from janusx_tpu_torch.models.superblocks import stream
+from janusx_tpu_torch.models.superblocks import replicas, scan_resident, stream
 from janusx_tpu_torch.ops import kernels
 from janusx_tpu_torch.ops.brent import brent_minimize_batched
+from janusx_tpu_torch.parallel.mesh import home_device
 from janusx_tpu_torch.utils import devcache
 
 f32, f64 = torch.float32, torch.float64
@@ -162,16 +168,23 @@ def _upload(pg, basis: SpectralBasis, block: int, dev):
     nblk = -(-m // block)
     pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
     mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
+    return (pk, mn) + _basis_operands(basis, dev)
+
+
+def _basis_operands(basis: SpectralBasis, dev):
+    """U f32 and K1's bf16 pieces of U, made once per basis and device (the
+    shards of one device share them)."""
     U32 = devcache.to_device(basis.U, f32, dev)
-    # made once per basis and device
     U_split = devcache.derived(basis.U, "u_split", dev, lambda: kernels.split_u(U32))
-    return pk, mn, U32, U_split
+    return U32, U_split
 
 
 def _grid_scan(pg, basis: SpectralBasis, states, nulls, block: int, lmm2: bool,
-               superblock: int, dev) -> list[ScanResult]:
+               superblock: int, dev, mesh=None) -> list[ScanResult]:
     """Grid scan of the traits in ``states`` [(rot, grid_lg, sh)], one
-    ScanResult each; superblocks are capped so the T lattices fit."""
+    ScanResult each; superblocks are capped so the T lattices fit. With
+    ``mesh`` every shard launches K1 and K2 on its slice of each superblock
+    (janusx_tpu's _lmm_scan_sharded / _lmm_scan_sharded_multi)."""
     rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", kernels.ROTATE_PRECS)
     # the lattice's gram precision, read by both the single-trait and the
     # trait-level scan as the reference reads it (lmm.py:387, 725)
@@ -186,19 +199,23 @@ def _grid_scan(pg, basis: SpectralBasis, states, nulls, block: int, lmm2: bool,
         # (the card's B operand) are split once per scan
         W, YX, SH = _lattice_operands_multi(shs, rots)
         lattice = (W, YX, SH, kernels.split_w(W))
+    reps = replicas((rots, shs, lattice), mesh)
 
-    def chunk(pg):
-        m = pg.m
-        pk, mn, U32, U_split = _upload(pg, basis, block, dev)
-        beta, se, pw, lgs, ml = _grid_resident(pk, mn, U32, U_split, rots, shs,
-                                               n, lmm2, rot_prec, lattice, grid_prec)
+    def compute(i, pk, mn, d):
+        rots_d, shs_d, lattice_d = reps[i]
+        beta, se, pw, lgs, ml = _grid_resident(pk, mn, *_basis_operands(basis, d), rots_d,
+                                               shs_d, n, lmm2, rot_prec, lattice_d, grid_prec)
         # one f32 stack to the host, as the reference ships it; λ* and ml
         # only on the lmm2 route (lmm.py:474-479)
         out = torch.stack([beta.to(f32), se.to(f32), pw.to(f32)])
-        out = out.cpu().numpy().astype(np.float64)[:, :, :m]
+        return (out, lgs.to(f32), ml) if lmm2 else (out, None, None)
+
+    def chunk(pg):
+        m = pg.m
+        out, lgs, ml = scan_resident(pg, block, dev, mesh, compute)
+        out = out.astype(np.float64)
         if lmm2:
-            lbd = 10.0 ** lgs.to(f32).cpu().numpy().astype(np.float64)[:, :m]
-            ml = ml.cpu().numpy()[:, :m]
+            lbd = 10.0 ** lgs.astype(np.float64)
         res = []
         for t in range(T):
             beta_t, se_t, pwald = out[0, t], out[1, t], out[2, t]
@@ -215,7 +232,7 @@ def _grid_scan(pg, basis: SpectralBasis, states, nulls, block: int, lmm2: bool,
 
     grid_points = shs[0].grid_lg.shape[0]
     return stream(pg, lattice_superblock(n, grid_points, block, superblock, T),
-                  block, chunk)
+                  block, chunk, mesh)
 
 
 def _brent_scan(pg, basis: SpectralBasis, rot: RotatedData, null: NullFit,
@@ -296,12 +313,6 @@ def fit_null(basis: SpectralBasis, y: np.ndarray, covariates=None,
     return fit_null_reml(rot)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "SNP-sharded scans are not ported yet (ROADMAP queue 1, item 23)")
-
-
 def lmm_scan(
     pg: PackedGenotypes,
     basis: SpectralBasis,
@@ -320,8 +331,15 @@ def lmm_scan(
     if method not in ("grid", "brent"):
         raise ValueError(
             f"unknown lmm scan method {method!r} (expected 'grid' or 'brent')")
-    _no_mesh(mesh)
-    dev = config.resolve_device(device)
+    if method == "brent" and mesh is not None:
+        import warnings
+
+        warnings.warn(
+            "lmm_scan(method='brent') runs single-device; the mesh argument "
+            "is ignored on this path (use method='grid' for sharded scans)",
+            stacklevel=2)
+        mesh = None
+    dev = home_device(mesh, device)
     if grid_points is None:
         grid_points = config.knob("JX_TPU_GRID_POINTS")
     y = np.asarray(y, np.float64).reshape(-1)
@@ -330,7 +348,8 @@ def lmm_scan(
         null = fit_null_reml(state[0])
     if method == "brent":
         return _brent_scan(pg, basis, state[0], null, block, lmm2, superblock, dev), null
-    return _grid_scan(pg, basis, [state], [null], block, lmm2, superblock, dev)[0], null
+    return _grid_scan(pg, basis, [state], [null], block, lmm2, superblock, dev,
+                      mesh)[0], null
 
 
 def lmm_scan_multi(
@@ -351,8 +370,7 @@ def lmm_scan_multi(
     traits and one trait-axis K2 launch. Each trait's result is the one
     ``lmm_scan`` gives it. ``_prepared`` = ([(rot, grid_lg, sh)], [NullFit])
     per trait, computed here when None."""
-    _no_mesh(mesh)
-    dev = config.resolve_device(device)
+    dev = home_device(mesh, device)
     Y = np.asarray(Y, np.float64)
     if Y.ndim == 1:
         Y = Y[:, None]
@@ -368,4 +386,5 @@ def lmm_scan_multi(
         nulls = [fit_null_reml(rot) for rot, _, _ in states]
     else:
         states, nulls = _prepared
-    return _grid_scan(pg, basis, states, nulls, block, lmm2, superblock, dev), nulls
+    return _grid_scan(pg, basis, states, nulls, block, lmm2, superblock, dev,
+                      mesh), nulls

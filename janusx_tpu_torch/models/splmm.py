@@ -40,10 +40,10 @@ from janusx_tpu_torch import config
 from janusx_tpu_torch.core import stats as jstats
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.lm import _lm_grams, design_matrix
-from janusx_tpu_torch.models.lmm import _no_mesh
 from janusx_tpu_torch.models.scan_common import ScanResult, finalize_invalid, iter_blocks
-from janusx_tpu_torch.models.superblocks import stream
+from janusx_tpu_torch.models.superblocks import scan_resident, stream
 from janusx_tpu_torch.ops.decode import decode_centered, decode_standardized
+from janusx_tpu_torch.parallel.mesh import home_device
 from janusx_tpu_torch.utils import devcache
 
 DEFAULT_SPARSE_CUTOFF = 0.05
@@ -229,14 +229,6 @@ def _calibrate_gamma(pg, proj, null: SparseNullFit, a, seed: int):
     return float(np.mean(gammas)), int(mask.sum())
 
 
-def _upload(sub, block: int, dev):
-    """A resident chunk's packed rows (nblk, block, nb) and means."""
-    nblk = -(-sub.m // block)
-    pk = devcache.device_packed_blocks(sub, (nblk, block), dev)
-    mn = devcache.to_device_blocks(sub.mean, (nblk, block), 0.0, f32, dev)
-    return pk, mn
-
-
 def splmm_grammar_scan(
     pg: PackedGenotypes,
     K,
@@ -254,9 +246,9 @@ def splmm_grammar_scan(
     ``K`` may be a dense kinship (thresholded at ``cutoff`` here) or an
     already-thresholded scipy sparse matrix (the biobank path — the dense
     n² matrix is then never formed). ``pg`` may be in-RAM or the
-    disk-backed WindowedPacked (streamed by superblock)."""
-    _no_mesh(mesh)
-    dev = config.resolve_device(device)
+    disk-backed WindowedPacked (streamed by superblock). With ``mesh`` the
+    per-SNP grams run SNP-sharded over the device mesh."""
+    dev = home_device(mesh, device)
     y = np.asarray(y, np.float64).reshape(-1)
     n = pg.n
     X = design_matrix(n, covariates)
@@ -285,11 +277,12 @@ def splmm_grammar_scan(
     Ma = proj(a)[:, None]
     block = min(block, pg.m) if pg.m else block
 
-    def chunk(sub):
-        m = sub.m
-        pk, mn = _upload(sub, block, dev)
+    def compute(i, pk, mn, d):
         gA, gMg = _lm_grams(pk, mn, X, C, Ma, n)
-        gA, gMg = gA[:, 0].cpu().numpy()[:m], gMg.cpu().numpy()[:m]
+        return gA[:, 0], gMg
+
+    def chunk(sub):
+        gA, gMg = scan_resident(sub, block, dev, mesh, compute)
         with np.errstate(divide="ignore", invalid="ignore"):
             beta = gA / (gamma_eff * gMg)
             se = 1.0 / np.sqrt(gamma_eff * gMg)
@@ -298,7 +291,7 @@ def splmm_grammar_scan(
         return [ScanResult(sites=sub.sites, af=sub.af, miss=sub.miss, beta=beta,
                            se=se, pwald=pwald, extras=info)]
 
-    return stream(pg, superblock, block, chunk)[0], info
+    return stream(pg, superblock, block, chunk, mesh)[0], info
 
 
 def splmm_exact_scan(
@@ -320,9 +313,10 @@ def splmm_exact_scan(
     matmuls per SNP block against precomputed V^-1 X and P y. The blocks
     of a resident superblock are looped on the device; janusx_tpu
     dispatches one call per block from the host (splmm.py:473-482). A
-    percolated kinship keeps the reference's host sparse-LU route."""
-    _no_mesh(mesh)
-    dev = config.resolve_device(device)
+    percolated kinship keeps the reference's host sparse-LU route. With
+    ``mesh`` the device route's blocks run SNP-sharded (the host route, as
+    in the reference, does not shard)."""
+    dev = home_device(mesh, device)
     y = np.asarray(y, np.float64).reshape(-1)
     n = pg.n
     X = design_matrix(n, covariates)
@@ -368,17 +362,25 @@ def splmm_exact_scan(
         return G @ Py_host, gPg
 
     if bs.sparse_comps:
-        device_block = None
+        device_block, mesh = None, None
     else:
-        quad_fn = bs.device_quad_fn(lbd, dev)
-        Pyd, AXd, Cvd = (torch.as_tensor(a, dtype=f32, device=dev)
-                         for a in (Py_host, A_X, Cv))
+        def operands(d):
+            """V's bucketed quadratic and the f32 constants on device d."""
+            return (bs.device_quad_fn(lbd, d),
+                    *(torch.as_tensor(a, dtype=f32, device=d) for a in (Py_host, A_X, Cv)))
 
-        def device_block(pk, mn):
+        per_dev = {d: operands(d) for d in (mesh.distinct if mesh else (dev,))}
+
+        def device_block(pk, mn, d):
+            quad_fn, Pyd, AXd, Cvd = per_dev[d]
             G = decode_centered(pk, mn, f32)[:, :n]
             T2 = G @ AXd  # g'V^-1 X  (B, p)
             gPg = quad_fn(G) - torch.einsum("bp,pq,bq->b", T2, Cvd, T2)
             return torch.stack([G @ Pyd, gPg])  # g'Py directly
+
+    def compute(i, pk, mn, d):
+        return (torch.cat([device_block(pk[b], mn[b], d) for b in range(pk.shape[0])],
+                          dim=1).double(),)
 
     def chunk(sub):
         m = sub.m
@@ -387,10 +389,7 @@ def splmm_exact_scan(
                     for s0, e0 in iter_blocks(m, block)]
             gPy, gPg = (np.concatenate(x) for x in zip(*outs))
         else:
-            pk, mn = _upload(sub, block, dev)
-            out = torch.cat([device_block(pk[i], mn[i]) for i in range(pk.shape[0])],
-                            dim=1)
-            gPy, gPg = out.double().cpu().numpy()[:, :m]
+            gPy, gPg = scan_resident(sub, block, dev, mesh, compute)[0]
         with np.errstate(divide="ignore", invalid="ignore"):
             beta = gPy / gPg
             se = np.sqrt(sigma2 / gPg)
@@ -399,4 +398,4 @@ def splmm_exact_scan(
         return [ScanResult(sites=sub.sites, af=sub.af, miss=sub.miss, beta=beta,
                            se=se, pwald=pwald, extras=info)]
 
-    return stream(pg, superblock, block, chunk)[0], info
+    return stream(pg, superblock, block, chunk, mesh)[0], info

@@ -1,25 +1,39 @@
-"""Superblock streaming shared by the port's scans.
+"""Superblock streaming and SNP sharding shared by the port's scans.
 
 Every scan of janusx_tpu streams an input larger than its resident cap in
 chunks of whole SNP blocks, reading chunk k+1 on the host while the device
 works on chunk k (janusx_tpu/models/lmm.py:413-433, lm.py:124-135,
 fvlmm.py:100-108). Here that loop is written once; each scan passes the
 function that scans one resident chunk for all of its traits.
+
+With a device mesh each resident chunk is SNP-sharded as janusx_tpu's
+``shard_map`` scans shard it: the block is rounded up to a multiple of the
+mesh size and every shard takes an equal slice of every block
+(``shard_axis`` 1 of the (nblk, block) layout). ``scan_resident`` issues
+each shard's uploads and launches on its own device, synchronizes only
+after the last shard is issued (so distinct cards overlap), and gathers
+the per-SNP outputs back in SNP order.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from janusx_tpu_torch.models.scan_common import ScanResult
+from janusx_tpu_torch.parallel.mesh import on_device
+from janusx_tpu_torch.utils import devcache
 from janusx_tpu_torch.utils.prefetch import prefetch_one_ahead
 
 
-def stream(pg, superblock: int, block: int, scan_chunk) -> list[ScanResult]:
+def stream(pg, superblock: int, block: int, scan_chunk, mesh=None) -> list[ScanResult]:
     """``scan_chunk(resident_pg) -> [ScanResult per trait]`` over ``pg``:
     in one call when ``pg`` holds at most ``superblock`` SNPs (a lazy input
     is materialized first), else over chunks of whole ``block``s whose
-    per-trait results are concatenated in SNP order."""
+    per-trait results are concatenated in SNP order. ``superblock`` is a
+    one-device cap: a mesh of k distinct devices holds k times as many."""
+    if mesh is not None:
+        superblock *= mesh.resident_scale()
     superblock = min(superblock, getattr(pg, "max_resident_snps", superblock))
     m = pg.m
     if m <= superblock:
@@ -31,3 +45,54 @@ def stream(pg, superblock: int, block: int, scan_chunk) -> list[ScanResult]:
     parts = [scan_chunk(sub) for sub in prefetch_one_ahead(
         spans, lambda se: pg.take_snps(np.arange(se[0], se[1])))]
     return [ScanResult.concat([p[t] for p in parts]) for t in range(len(parts[0]))]
+
+
+def shard_block(block: int, mesh) -> int:
+    """The SNP block of a (sharded) resident chunk: every shard needs the
+    same whole blocks, so a mesh rounds it up to a multiple of its size."""
+    if mesh is None:
+        return block
+    return -(-block // mesh.size) * mesh.size
+
+
+def replicas(tree, mesh) -> list:
+    """``tree`` per shard (``[tree]`` without a mesh): one copy per
+    distinct device, shared by that device's shards."""
+    return [tree] if mesh is None else devcache.replicate_tree(tree, mesh)
+
+
+def scan_resident(pg, block: int, dev, mesh, compute, mean: bool = True) -> list:
+    """One resident chunk through ``compute(i, pk, mn, device)``, which
+    returns device tensors (or None) whose last axis runs over the rows of
+    ``pk`` (nblk, B, nb) block by block; ``mn`` is the (nblk, B) f32
+    means (None unless ``mean``). Without ``mesh``: one call on ``dev``.
+    With one: shard i gets rows [i·w, (i+1)·w) of every block, w =
+    block / mesh.size, on mesh.device_list[i]. Returns the outputs as host
+    arrays, rows in SNP order, trimmed to pg.m."""
+    m = pg.m
+    block = shard_block(block, mesh)
+    shape = (-(-m // block), block)
+    if mesh is None:
+        pk = devcache.device_packed_blocks(pg, shape, dev)
+        mn = devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, dev) if mean else None
+        return [None if x is None else x.cpu().numpy()[..., :m]
+                for x in compute(0, pk, mn, dev)]
+    pks = devcache.device_packed_blocks(pg, shape, mesh=mesh, shard_axis=1)
+    mns = (devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, mesh=mesh,
+                                     shard_axis=1) if mean else [None] * mesh.size)
+    outs = []
+    for i, d in enumerate(mesh.device_list):
+        with on_device(d):
+            outs.append(compute(i, pks[i], mns[i], d))
+    gathered = []
+    for xs in zip(*outs):
+        if xs[0] is None:
+            gathered.append(None)
+            continue
+        xs = [x.cpu().numpy() for x in xs]
+        lead = xs[0].shape[:-1]
+        # (..., nblk, w) per shard -> (..., nblk, D, w): block by block,
+        # shard by shard, which is SNP order
+        full = np.stack([x.reshape(lead + (shape[0], -1)) for x in xs], axis=-2)
+        gathered.append(full.reshape(lead + (-1,))[..., :m])
+    return gathered

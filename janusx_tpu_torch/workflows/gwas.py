@@ -12,10 +12,11 @@ janusx_tpu/workflows/gwas.py):
   (unless force_model), scan, TSV -> combined trait-level TSVs, summary,
   run history.
 
-Models: see MODELS. Only the SNP-sharded ``mesh`` of janusx_tpu is not
-ported (ROADMAP queue 1, item 23). Each stage's wall seconds go into the
-run summary (``stages``: the shared stages at the top level, each run's
-own under it).
+Models: see MODELS. With more than one device (``n_devices``, capped by
+``JX_TPU_DEVICES``) the GRM and every scan run SNP-sharded over a device
+mesh (parallel.mesh), as janusx_tpu's do. Each stage's wall seconds go
+into the run summary (``stages``: the shared stages at the top level,
+each run's own under it).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ _TAGS = {"lm": "LM", "lmm": "LMM", "lmm2": "LMM2", "fvlmm": "FvLMM",
 
 @dataclass
 class GwasConfig:
-    """janusx_tpu's GwasConfig without its mesh knob (n_devices)."""
+    """janusx_tpu's GwasConfig."""
 
     genotype: str
     phenotype: str
@@ -103,6 +104,9 @@ class GwasConfig:
     # FarmCPU/ALGWAS stage-1 selection (reference dev flags)
     qtn_genotype: str | None = None
     use_cache: bool = True  # GRM npy+id cache with reference naming
+    # devices over the 'snp' mesh axis: None = all local devices (mesh is
+    # skipped when only 1 is available), 1 = force single-device
+    n_devices: int | None = None
 
 
 @dataclass
@@ -237,13 +241,18 @@ def _exact_cutoff(cfg: GwasConfig) -> float:
 
 
 def resolve_mesh(n_devices: int | None):
-    """The device mesh of janusx_tpu/workflows/gwas.py:159: None for one
-    device (``n_devices`` None or 1), which is all the port runs on; more
-    raise until the multi-device slice lands (ROADMAP queue 1, item 23)."""
-    if n_devices is None or n_devices <= 1:
+    """The production device mesh: all local devices on the 'snp' axis
+    (None when that degenerates to a single device). JX_TPU_DEVICES caps
+    the count when the caller does not."""
+    from janusx_tpu_torch.parallel import mesh as mesh_mod
+
+    avail = len(mesh_mod.visible_devices())
+    if n_devices is None:
+        n_devices = config.knob("JX_TPU_DEVICES")
+    nd = avail if n_devices is None else min(n_devices, avail)
+    if nd <= 1:
         return None
-    raise NotImplementedError(
-        "multi-device meshes are not ported yet (ROADMAP queue 1, item 23)")
+    return mesh_mod.make_mesh(nd)
 
 
 def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
@@ -253,6 +262,9 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
     config.resolve_device()  # fail before any work when no device fits
     stages: dict = {}
     qc = QcParams(maf=cfg.maf, geno=cfg.geno, het=cfg.het)
+    mesh = resolve_mesh(cfg.n_devices)
+    if mesh is not None:
+        log.info("device mesh: %d devices on the 'snp' axis", mesh.devices.size)
     with _timed(stages, "load", "load genotypes"):
         raw = load_raw_packed(cfg.genotype)
         qraw = load_raw_packed(cfg.qtn_genotype) if cfg.qtn_genotype else None
@@ -274,7 +286,7 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
         with _timed(stages, "grm", "GRM"):
             K = load_or_build_grm(
                 cfg.genotype, pg_full, cfg.maf, cfg.geno, method=cfg.grm_method,
-                block=cfg.block, use_cache=cfg.use_cache,
+                block=cfg.block, use_cache=cfg.use_cache, mesh=mesh,
             )
     # sparse-only model sets never build the dense n² GRM
     Ksp, Ksp_exact = (_sparse_grms(cfg, raw.samples, pg_full, stages)
@@ -337,7 +349,8 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
             if "lm" in batchable:
                 Yb = np.stack([y_all[keep, ti] for ti, *_ in members], axis=1)
                 with _timed(stages, "batch_lm", f"trait-level lm batch ({len(members)} traits)"):
-                    res_b = lm_mod.lm_scan_multi(pg_b, Yb, cov_b, block=cfg.block)
+                    res_b = lm_mod.lm_scan_multi(pg_b, Yb, cov_b, block=cfg.block,
+                                                 mesh=mesh)
                 for (_, trait, _), r in zip(members, res_b):
                     batched[(str(trait), "lm")] = r
             mixed = [m for m in _MIXED if m in batchable]
@@ -363,11 +376,11 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                             f"trait-level {model_b} batch ({len(mem)} traits)"):
                     if model_b == "fvlmm":
                         res_b, nulls_b = fvlmm_mod.fvlmm_scan_multi(
-                            pg_b, entry["basis"], Yb, cov_b, block=cfg.block)
+                            pg_b, entry["basis"], Yb, cov_b, block=cfg.block, mesh=mesh)
                     else:
                         res_b, nulls_b = lmm_mod.lmm_scan_multi(
                             pg_b, entry["basis"], Yb, cov_b, block=cfg.block,
-                            lmm2=(model_b == "lmm2"))
+                            lmm2=(model_b == "lmm2"), mesh=mesh)
                 for (_, trait, _), r, nl in zip(mem, res_b, nulls_b):
                     batched[(str(trait), model_b)] = (r, nl)
 
@@ -453,30 +466,32 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                     if requested == "lm" and key in batched:
                         res = batched[key]
                     else:
-                        res = lm_mod.lm_scan(pg_t, y_t, cov_t, block=cfg.block)
+                        res = lm_mod.lm_scan(pg_t, y_t, cov_t, block=cfg.block,
+                                             mesh=mesh)
                 elif model in _MIXED and key in batched:
                     res, null = batched[key]
                     lbd_null = null.lbd
                 elif model == "fvlmm":
                     res, null = fvlmm_mod.fvlmm_scan(pg_t, basis, y_t, cov_t,
-                                                     block=cfg.block)
+                                                     block=cfg.block, mesh=mesh)
                     lbd_null = null.lbd
                 elif model in ("lmm", "lmm2"):
                     res, null = lmm_mod.lmm_scan(
                         pg_t, basis, y_t, cov_t, block=cfg.block,
-                        lmm2=(model == "lmm2"), null=null, method=cfg.scan_method)
+                        lmm2=(model == "lmm2"), null=null, method=cfg.scan_method,
+                        mesh=mesh)
                     lbd_null = null.lbd
                 elif model == "lowrank":
                     res, null = fl.fastlmm_scan(
                         pg_t, entry["lrb"], y_t, cov_t, block=cfg.block,
-                        model=cfg.genetic_model, rot=rot_lr, null=null)
+                        model=cfg.genetic_model, rot=rot_lr, null=null, mesh=mesh)
                     lbd_null = null.lbd
                 elif model == "splmm":
                     from janusx_tpu_torch.models.splmm import splmm_grammar_scan
 
                     res, info = splmm_grammar_scan(
                         pg_t, Ksp[keep][:, keep].tocsc(), y_t, cov_t,
-                        cutoff=cfg.splmm_cutoff, block=cfg.block)
+                        cutoff=cfg.splmm_cutoff, block=cfg.block, mesh=mesh)
                     lbd_null = info["lambda_null"]
                 elif model == "splmm-exact":
                     from janusx_tpu_torch.models.splmm import splmm_exact_scan
@@ -484,20 +499,21 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                     Ksp_e = Ksp if Ksp_exact is None else Ksp_exact
                     res, info = splmm_exact_scan(
                         pg_t, Ksp_e[keep][:, keep].tocsc(), y_t, cov_t,
-                        cutoff=_exact_cutoff(cfg), block=cfg.block)
+                        cutoff=_exact_cutoff(cfg), block=cfg.block, mesh=mesh)
                     lbd_null = info["lambda_null"]
                 elif model == "algwas":
                     from janusx_tpu_torch.models.algwas import algwas_scan
 
                     res = algwas_scan(pg_t, y_t, cov_t, block=cfg.block,
-                                      pg_qtn=entry.get("pg_qtn")).result
+                                      pg_qtn=entry.get("pg_qtn"), mesh=mesh).result
                 elif model in ("farmcpu", "frgwas"):
                     from janusx_tpu_torch.models import farmcpu as fc
 
                     kw = dict(block=cfg.block, p_threshold=cfg.farmcpu_threshold,
                               max_loops=cfg.farmcpu_iter,
                               window_sizes=tuple(cfg.farmcpu_bin_sizes),
-                              qtn_bound=cfg.farmcpu_qtn_bound, nbin=cfg.farmcpu_nbin)
+                              qtn_bound=cfg.farmcpu_qtn_bound, nbin=cfg.farmcpu_nbin,
+                              mesh=mesh)
                     if model == "farmcpu":
                         res = fc.farmcpu_scan(pg_t, y_t, cov_t,
                                               pg_qtn=entry.get("pg_qtn"), **kw).result
@@ -514,7 +530,7 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                     res, null2 = gxe_scan(
                         pg_t, y_t, cov_t[:, -1], cov_t[:, :-1] if cov_t.shape[1] > 1 else None,
                         basis=basis,
-                        block=cfg.block)
+                        block=cfg.block, mesh=mesh)
                     lbd_null = None if null2 is None else null2.lbd
             secs = time.monotonic() - t1
             tsv_path = None

@@ -961,3 +961,96 @@ def test_ggval_gwas_on_card(dev, tmp_path, monkeypatch, capsys):
     assert "12/12 checks passed" in out and "FAIL" not in out
     launches = kernels.launch_counts()
     assert launches["decode_rotate"] > 0 and launches["grid_neg_reml_lattice"] > 0
+
+
+# ------------------------------------------------------------- the mesh
+def _mesh_problem():
+    from janusx_tpu_torch.core.spectral import eigh_grm
+    from janusx_tpu_torch.models.grm import grm_from_packed
+
+    pg, _, Y, cov = _scan_problem(5000, 300, 3)
+    K = grm_from_packed(pg, device="cpu")
+    return pg, eigh_grm(K, diag_ridge=1e-6), Y, cov, K
+
+
+def test_mesh_two_shards_on_one_card(dev):
+    """A mesh of two shards on the one card (Mesh([cuda:0, cuda:0])):
+    lmm_scan and lmm_scan_multi launch K1 and K2 once per shard per
+    superblock and agree with the single-device scans within beta rtol
+    2e-3 / atol 1e-6 and Δ(-log10 p) < 5e-3 (tests/test_sharding.py:82-84);
+    the sharded GRM within rtol 1e-5 / atol 1e-5 of one device's
+    (tests/test_sharding.py:46)."""
+    from janusx_tpu_torch.models import grm, lmm
+    from janusx_tpu_torch.parallel.mesh import Mesh
+
+    pg, basis, Y, cov, K = _mesh_problem()
+    mesh = Mesh([dev, dev])
+    np.testing.assert_allclose(grm.grm_from_packed(pg, mesh=mesh), K, rtol=1e-5, atol=1e-5)
+    one, _ = lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=512, superblock=2048, device=dev)
+    kernels.reset_launches()
+    two, _ = lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=512, superblock=2048, mesh=mesh)
+    sb = -(-pg.m // 2048)
+    assert kernels.decode_rotate.launches == kernels.grid_neg_reml_lattice.launches == 2 * sb
+    _close_sharded(one, two)
+    multi1, _ = lmm.lmm_scan_multi(pg, basis, Y, cov, block=512, device=dev)
+    kernels.reset_launches()
+    multi2, _ = lmm.lmm_scan_multi(pg, basis, Y, cov, block=512, mesh=mesh)
+    assert kernels.decode_rotate.launches == kernels.grid_neg_reml_lattice.launches == 2
+    for a, b in zip(multi1, multi2):
+        _close_sharded(a, b)
+
+
+def _close_sharded(a, b):
+    np.testing.assert_allclose(b.beta, a.beta, rtol=2e-3, atol=1e-6, equal_nan=True)
+    np.testing.assert_allclose(b.se, a.se, rtol=2e-3, atol=1e-6, equal_nan=True)
+    assert np.nanmax(np.abs(np.log10(b.pwald) - np.log10(a.pwald))) < 5e-3
+
+
+def _all_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from janusx_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(torch.cuda.device_count())
+
+
+def test_mesh_over_every_card_matches_one_card(dev):
+    """make_mesh over every card: each shard's K1/K2 launch on its own
+    card, the scans within the two-shard test's bounds of one card's, the
+    GRM within rtol 1e-5 / atol 1e-5."""
+    from janusx_tpu_torch.models import grm, lmm
+
+    mesh = _all_cards()
+    pg, basis, Y, cov, K = _mesh_problem()
+    np.testing.assert_allclose(grm.grm_from_packed(pg, mesh=mesh), K, rtol=1e-5, atol=1e-5)
+    one, _ = lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=512, device=dev)
+    kernels.reset_launches()
+    many, _ = lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=512, mesh=mesh)
+    assert kernels.decode_rotate.launches == mesh.size
+    _close_sharded(one, many)
+
+
+def test_run_gwas_over_every_card_matches_one_card(dev, tmp_path, monkeypatch):
+    """``jx gwas -lm -lmm -fvlmm`` with JX_TPU_DEVICES unset (every card)
+    against JX_TPU_DEVICES=1: Δ(-log10 p) <= 5e-3 (tests/test_sharding.py:145)."""
+    from janusx_tpu_torch.io.plink import write_plink
+    from janusx_tpu_torch.workflows.gwas import GwasConfig, run_gwas
+
+    mesh = _all_cards()
+    pg, _, Y, _, _ = _mesh_problem()
+    geno = str(tmp_path / "toy")
+    write_plink(geno, pg.packed, pg.n_samples, pg.sites, pg.samples)
+    with open(tmp_path / "toy.pheno", "wt") as fh:
+        fh.write("id\tt1\n" + "".join(f"{s}\t{v:.6f}\n" for s, v in zip(pg.samples, Y[:, 0])))
+    monkeypatch.setenv("JX_TPU_PLATFORM", "cuda")
+    monkeypatch.setenv("JX_TPU_HISTORY_DB", "0")
+    common = dict(genotype=geno + ".bed", phenotype=str(tmp_path / "toy.pheno"),
+                  models=("lm", "lmm", "fvlmm"), force_model=True, use_cache=False)
+    monkeypatch.setenv("JX_TPU_DEVICES", "1")
+    one = run_gwas(GwasConfig(out_prefix=str(tmp_path / "one"), **common))
+    monkeypatch.delenv("JX_TPU_DEVICES")
+    many = run_gwas(GwasConfig(out_prefix=str(tmp_path / "many"), **common))
+    assert mesh.size >= 2
+    for a, b in zip(one, many):
+        dl = np.abs(np.log10(a.result.pwald) - np.log10(b.result.pwald))
+        assert np.nanmax(dl) <= 5e-3, a.model

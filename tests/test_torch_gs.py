@@ -366,12 +366,24 @@ def test_top_loss_grad_hess_match_reference():
     np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=1e-10, atol=1e-12)
 
 
-def test_resolve_mesh():
+def test_resolve_mesh(monkeypatch):
+    """One visible device: no mesh, whatever is asked. Eight (the seam
+    patched, as the sharded run_gwas/run_gs tests do): n_devices, else
+    JX_TPU_DEVICES, else all of them (the reference's rule)."""
+    import torch
+
+    from janusx_tpu_torch.parallel import mesh as mesh_mod
     from janusx_tpu_torch.workflows.gwas import resolve_mesh
 
+    monkeypatch.setenv("JX_TPU_PLATFORM", "cpu")
+    monkeypatch.delenv("JX_TPU_DEVICES", raising=False)
     assert resolve_mesh(None) is None and resolve_mesh(1) is None
-    with pytest.raises(NotImplementedError, match="item 23"):
-        resolve_mesh(2)
+    assert resolve_mesh(2) is None
+    monkeypatch.setattr(mesh_mod, "visible_devices", lambda: [torch.device("cpu")] * 8)
+    assert resolve_mesh(None).devices.size == 8 and resolve_mesh(1) is None
+    assert resolve_mesh(3).devices.size == 3 and resolve_mesh(20).devices.size == 8
+    monkeypatch.setenv("JX_TPU_DEVICES", "2")
+    assert resolve_mesh(None).devices.size == 2
 
 
 def test_gs_knobs_match_reference():

@@ -513,6 +513,80 @@ def test_port_host_tools_run_without_jax(tmp_path):
         assert line in proc.stdout, proc.stdout[-2000:]
 
 
+_PARALLEL_SLICE = r"""
+import os, socket, subprocess, sys
+
+import numpy as np
+import torch
+
+from janusx_tpu_torch.cli.main import main
+from janusx_tpu_torch.io import bitcodec
+from janusx_tpu_torch.io.gdata import SiteInfo
+from janusx_tpu_torch.io.plink import write_plink
+from janusx_tpu_torch.parallel import distributed, dryrun, mesh
+
+d, worker = sys.argv[1], sys.argv[2]
+fn, args = dryrun.entry()
+fn(*args)
+dryrun.dryrun_multichip(8, repeat=True)
+rng = np.random.default_rng(3)
+n, m = 60, 300
+g = rng.binomial(2, rng.uniform(0.1, 0.5, m)[:, None], size=(m, n))
+sites = SiteInfo(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
+                 snp=np.array([f"rs{i}" for i in range(m)], object),
+                 allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+write_plink(d + "/toy", bitcodec.pack_codes(g.astype(np.uint8)), n, sites,
+            np.array([f"s{j}" for j in range(n)], object))
+y = (g - g.mean(1, keepdims=True)).T @ rng.normal(0, 0.15, m) + rng.normal(size=n)
+with open(d + "/toy.pheno", "w") as fh:
+    fh.write("ID\ttest0\n" + "".join(f"s{j}\t{v}\n" for j, v in enumerate(y)))
+# a host of eight devices: jx gwas builds its mesh from them
+mesh.visible_devices = lambda: [torch.device("cpu")] * 8
+assert main(["gwas", "-bfile", d + "/toy", "-p", d + "/toy.pheno", "-lm", "-lmm", "-fvlmm",
+             "-o", d + "/out"]) == 0
+assert main(["grm", "-bfile", d + "/toy", "--distributed", "-o", d + "/grm"]) == 0
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+procs = [subprocess.Popen([sys.executable, worker, str(i), "2", str(port), d],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         for i in range(2)]
+outs = [p.communicate(timeout=180)[0] for p in procs]
+assert all(p.returncode == 0 for p in procs), outs
+print("WORKERS", [o.splitlines()[-1] for o in outs])
+print("JAX_LOADED", "jax" in sys.modules)
+print("REFERENCE_LOADED", any(k.split(".")[0] == "janusx_tpu" for k in sys.modules))
+"""
+
+
+def test_port_parallel_runs_without_jax(tmp_path):
+    """parallel/{mesh,distributed,dryrun}.py, ``jx gwas`` on an eight-shard
+    mesh, ``jx grm --distributed`` and two tests/torch_dist_worker.py
+    processes over gloo: neither the parent nor a worker loads jax or a
+    module of janusx_tpu."""
+    env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0",
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    env.pop("JX_TPU_DEVICES", None)
+    worker = str(ROOT / "tests" / "torch_dist_worker.py")
+    proc = subprocess.run([sys.executable, "-c", _PARALLEL_SLICE, str(tmp_path), worker],
+                          env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for line in ("JAX_LOADED False", "REFERENCE_LOADED False"):
+        assert line in proc.stdout, proc.stdout[-2000:]
+    assert proc.stdout.count("DIST_OK") == 2, proc.stdout[-2000:]
+    assert proc.stdout.count("jax_loaded=False reference_loaded=False") == 2, proc.stdout
+
+
+def test_only_the_pallas_module_has_no_counterpart():
+    """Every ``*.py`` of the reference package has a file of the same path
+    in the port, except ``ops/pallas_kernels.py``, whose two Pallas
+    kernels are ``csrc/rotate.cu`` and ``csrc/lattice.cu`` behind
+    ``ops/kernels.py``."""
+    rel = lambda pkg: {p.relative_to(ROOT / pkg).as_posix()
+                       for p in (ROOT / pkg).rglob("*.py") if "__pycache__" not in p.parts}
+    assert rel("janusx_tpu") - rel("janusx_tpu_torch") == {"ops/pallas_kernels.py"}
+
+
 # the reference's modules that the port lacks: none is left
 _NOT_YET = set()
 

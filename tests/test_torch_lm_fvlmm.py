@@ -82,8 +82,11 @@ def test_lm_scan_matches_reference_and_numpy(panel, p):  # noqa: F811
     _close(rt.beta[ok], beta[ok], 1e-6, "beta", floor=1e-5 * se[ok])
     _close(rt.se[ok], se[ok], 1e-6, "se")
     _close(rt.pwald[ok], pw[ok], 1e-5, "pwald")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tlm.lm_scan(pt, y, c, mesh=object(), device="cpu")
+    # SNP-sharded over eight CPU shards: the single-device scan's values
+    from janusx_tpu_torch.parallel.mesh import Mesh
+
+    rm = tlm.lm_scan(pt, y, c, block=512, superblock=1024, mesh=Mesh(["cpu"] * 8))
+    _close_scan(rm, rt, 1e-6, 1e-5)
 
 
 def test_lm_scan_multi_matches_reference(panel):  # noqa: F811

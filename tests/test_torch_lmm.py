@@ -85,10 +85,23 @@ def test_lmm_scan_streaming_matches_reference(panel):
 
 
 def test_lmm_scan_unported_routes_raise(panel):
-    """Only the SNP-sharded scan is left unported (brent and lmm2 are held
-    to the reference in tests/test_torch_lmm_family.py)."""
-    pj, pt, basis, y, _ = panel
+    """The SNP-sharded scan, the last route this test once found
+    unported, now runs: on a mesh of eight CPU shards both scans agree
+    with the single-device scan within tests/test_sharding.py:82-84's
+    bounds (beta rtol 2e-3 / atol 1e-6, Δ(-log10 p) < 5e-3), and brent
+    warns that it ignores the mesh."""
+    from janusx_tpu_torch.parallel.mesh import Mesh
+
+    pj, pt, basis, y, cov = panel
     tb = interop.basis_from_numpy(basis)
-    for scan in (tlmm.lmm_scan, tlmm.lmm_scan_multi):
-        with pytest.raises(NotImplementedError, match="item 23"):
-            scan(pt, tb, y, mesh=object(), device="cpu")
+    mesh = Mesh(["cpu"] * 8)
+    Y = np.stack([y, y[::-1]], axis=1)
+    for scan, yy in ((tlmm.lmm_scan, y), (tlmm.lmm_scan_multi, Y)):
+        one = scan(pt, tb, yy, cov[:, :2], block=512, device="cpu")[0]
+        many = scan(pt, tb, yy, cov[:, :2], block=512, mesh=mesh)[0]
+        for a, b in zip(np.atleast_1d(one), np.atleast_1d(many)):
+            np.testing.assert_allclose(b.beta, a.beta, rtol=2e-3, atol=1e-6, equal_nan=True)
+            assert np.nanmax(np.abs(np.log10(b.pwald) - np.log10(a.pwald))) < 5e-3
+    with pytest.warns(UserWarning, match="single-device"):
+        tlmm.lmm_scan(pt.take_snps(np.arange(64)), tb, y,
+                      method="brent", mesh=mesh, device="cpu")

@@ -118,9 +118,17 @@ def test_grm_cli_parts_match_reference(sim_dataset, tmp_path):
         _close_grm(s, K[rows])
 
 
-def test_grm_cli_distributed_is_not_ported(sim_dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_jx(["grm", "-bfile", sim_dataset, "--distributed", "-o", str(tmp_path)])
+def test_grm_cli_distributed_is_not_ported(sim_dataset, tmp_path, monkeypatch):
+    """``jx grm --distributed``, once refused here, now builds the GRM; in
+    one process (no JX_DIST_* nor launcher environment) it writes the
+    same .npy as ``jx grm``."""
+    for k in ("JX_DIST_COORDINATOR", "MASTER_ADDR", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    assert t_jx(["grm", "-bfile", sim_dataset, "-o", str(tmp_path / "one")]) == 0
+    assert t_jx(["grm", "-bfile", sim_dataset, "--distributed",
+                 "-o", str(tmp_path / "dist")]) == 0
+    (one,), (dist,) = (list((tmp_path / d).glob("*.cGRM.npy")) for d in ("one", "dist"))
+    np.testing.assert_array_equal(np.load(dist), np.load(one))
 
 
 def _pcs(d, prefix):
