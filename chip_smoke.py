@@ -315,8 +315,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def ptxas_summary(log: str) -> str:
     """The compiler's resource report (-Xptxas -v) as one entry per kernel
     instance: registers and spill bytes (stores/loads), K2 named by its
-    mode, p and traits per block, G1/G2 by whether a CTA's sample slice
-    stays resident; then any wgmma warning as printed."""
+    mode, p and traits per block, G1/G2's serial pass by its path (and
+    G1's C = 128 case) and their pre-passes; then any wgmma warning as
+    printed."""
     import re
 
     out, warn, name, spill = [], [], "?", "?"
@@ -325,12 +326,14 @@ def ptxas_summary(log: str) -> str:
         if m:
             k1 = re.search(r"decode_rotate_wgmmaILb([01])E", m.group(1))
             k2 = re.search(r"lattice_wgmmaILi(\d)ELi(\d)ELb([01])E", m.group(1))
-            g = re.search(r"gibbs_(marker|block_mvn)_kernelILi\d+ELb([01])E", m.group(1))
+            g = re.search(r"gibbs_sweep_kernelILi([12])ELb([01])ELi([012])E", m.group(1))
+            gp = re.search(r"gibbs_(marker|mvn)_prep_kernel", m.group(1))
             name = (f"K1 {'high' if k1.group(1) == '1' else 'highest'}" if k1 else
                     f"K2 {'default' if k2.group(3) == '1' else 'highest'} "
                     f"p{k2.group(1)} TT{k2.group(2)}" if k2 else
-                    f"{'G1' if g.group(1) == 'marker' else 'G2'} "
-                    f"{'resident' if g.group(2) == '1' else 'chunked'}" if g else m.group(1))
+                    f"G{g.group(1)}{' C128' if g.group(2) == '1' else ''} "
+                    f"{('cluster', 'grid', 'chunked')[int(g.group(3))]}" if g else
+                    f"G{1 if gp.group(1) == 'marker' else 2} pre-pass" if gp else m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"{m.group(1)}/{m.group(2)}"
@@ -1606,16 +1609,20 @@ def plain_sweeps_forbidden():
     path provably goes through G1 and G2 only."""
     from janusx_tpu_torch.ops import kernels
 
-    saved = kernels.gibbs_sweep_marker_plain, kernels.gibbs_sweep_block_mvn_plain
+    names = ("gibbs_sweep_marker_plain", "gibbs_sweep_block_mvn_plain",
+             "gibbs_sweep_marker_hoisted_plain", "gibbs_sweep_block_mvn_hoisted_plain")
+    saved = [getattr(kernels, n) for n in names]
 
     def refuse(*a, **k):
         raise SmokeFailure("a plain Gibbs sweep ran on the card path")
 
-    kernels.gibbs_sweep_marker_plain = kernels.gibbs_sweep_block_mvn_plain = refuse
+    for n in names:
+        setattr(kernels, n, refuse)
     try:
         yield
     finally:
-        kernels.gibbs_sweep_marker_plain, kernels.gibbs_sweep_block_mvn_plain = saved
+        for n, fn in zip(names, saved):
+            setattr(kernels, n, fn)
 
 
 def standardized(pg, keep, dev, block: int = 8192):
@@ -1792,9 +1799,38 @@ def check_gibbs(Z, y, dev) -> dict:
     return out
 
 
-def gibbs_times(Z, y, dev) -> dict:
-    """CUDA-event ms of one sweep of each kernel on the (n, m) matrix Z,
-    with the bytes and operations of one sweep for the bound."""
+# the dependent path of one block of the serial pass (csrc/gibbs.cu's
+# note): FP32 arithmetic at 4 cycles, a shuffle at 24 (latencies assumed,
+# not measured here)
+FP32_CYCLES, SHFL_CYCLES = 4, 24
+
+
+def chain_floor_ms(kind: str, nb: int, C: int, S: int, P: int, mhz: float) -> float:
+    """The chain floor of one sweep: per block the dependent instructions
+    of the serial path (this CTA's Z1 r in four accumulators over its half
+    of S samples, the sum of the P partials, G1's C marker steps of five
+    FP32 operations and a shuffle or G2's 128 x 128 product in 16-long
+    chains and a tree of eight, the residual update), times their
+    latencies, times nb, at ``mhz``."""
+    arith = -(-S // 8) + 3 + -(-P // 2) + 1 + -(-C // 16) + 4
+    shfl = 1 + 3
+    if kind == "marker":
+        arith, shfl = arith + 1 + 5 * C, shfl + C
+    else:
+        arith += 16 + 3 + 1
+    return nb * (arith * FP32_CYCLES + shfl * SHFL_CYCLES) / (mhz * 1e3)
+
+
+def gibbs_times(Z, y, dev, mhz: float = 0.0) -> dict:
+    """CUDA-event ms of one sweep of each kernel on the (n, m) matrix Z (5
+    after 1), with the bytes and operations of one sweep for the bound.
+    With ``mhz`` (the SM clock) also each kernel's pre-pass and serial pass
+    timed apart (the serial pass from the pre-pass's records of the state
+    it starts from), the serial pass's plan and chain floor, and G2's
+    yardstick: torch.linalg.cholesky + torch.cholesky_inverse of the
+    (nb, C, C) batch of Cb, the pre-pass's factorizations by the library."""
+    import torch
+
     from janusx_tpu_torch.gs.bayes import GeneratorDraws, block_markers
     from janusx_tpu_torch.ops import kernels
 
@@ -1803,8 +1839,10 @@ def gibbs_times(Z, y, dev) -> dict:
     draws = GeneratorDraws(5, dev, 5.0)
     _, rn, ru, rca, rci = draws.sweep(nb, C, "B")
     beta, var_b, r, scal = gibbs_state(Zb, x2, y, dev)
-    g1 = lambda sweep: sweep(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r, scal, "B")
-    g2 = lambda sweep: sweep(Zb, Gb, x2, beta, var_b, rn, rca, r, scal)
+    g1 = lambda **kw: kernels.gibbs_sweep_marker(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r,
+                                                 scal, "B", **kw)
+    g2 = lambda **kw: kernels.gibbs_sweep_block_mvn(Zb, Gb, x2, beta, var_b, rn, rca, r, scal,
+                                                    **kw)
     m_pad = nb * C
     # each operand read once and each result written once; the operations:
     # Z1 r and the residual update (4 m n), the right-hand-side updates of
@@ -1813,12 +1851,25 @@ def gibbs_times(Z, y, dev) -> dict:
     g2_bytes = 4 * (m_pad * n + m_pad * C + 5 * m_pad + 2 * m_pad + 2 * n)
     g1_flops = 4.0 * m_pad * n + 2.0 * m_pad * C
     g2_flops = 4.0 * m_pad * n + nb * (2.0 * C ** 3 / 3 + 4.0 * C * C)
-    return {"gibbs_sweep_marker": {
-                "ms": cuda_ms(lambda: g1(kernels.gibbs_sweep_marker), iters=5, warmup=1),
-                "bound": bound(g1_flops, g1_bytes, F32_PEAK)},
-            "gibbs_sweep_block_mvn": {
-                "ms": cuda_ms(lambda: g2(kernels.gibbs_sweep_block_mvn), iters=5, warmup=1),
-                "bound": bound(g2_flops, g2_bytes, F32_PEAK)}}
+    out = {}
+    for name, kind, fn, flops, nbytes in (
+            ("gibbs_sweep_marker", "marker", g1, g1_flops, g1_bytes),
+            ("gibbs_sweep_block_mvn", "mvn", g2, g2_flops, g2_bytes)):
+        t = out[name] = {"ms": cuda_ms(fn, iters=5, warmup=1),
+                         "bound": bound(flops, nbytes, F32_PEAK)}
+        if not mhz:
+            continue
+        sc = kernels.gibbs_scratch(kind, nb, C, dev)
+        t["prepass_ms"] = cuda_ms(lambda: fn(phases=1, scratch=sc), iters=5, warmup=1)
+        t["serial_ms"] = cuda_ms(lambda: fn(phases=2, scratch=sc), iters=5, warmup=1)
+        t["plan"] = kernels.gibbs_plan(kind, n, C)
+        t["chain_floor_ms"] = chain_floor_ms(kind, nb, C, t["plan"]["S"], t["plan"]["P"], mhz)
+    if mhz:
+        dinv = torch.where(x2 > 0, scal[0] / var_b.clamp_min(1e-12), 1.0)
+        Cb = Gb + torch.diag_embed(dinv) + 1e-4 * torch.eye(C, device=dev)
+        out["gibbs_sweep_block_mvn"]["library_ms"] = cuda_ms(
+            lambda: torch.cholesky_inverse(torch.linalg.cholesky(Cb)), iters=5, warmup=1)
+    return out
 
 
 def run_bayes_phase(d: str, prefix: str, pheno: str, cpu, dev, smi: str):
@@ -1883,7 +1934,10 @@ def run_bayes_phase(d: str, prefix: str, pheno: str, cpu, dev, smi: str):
             f"= {s1['m_snps']}, n = {N_PHENO}: max |Δβ| {c['max_abs_err']:.3g}, plain "
             f"{c['plain_ms']:.1f} ms; δ flips (block, marker, log-odds margin) {c['flips']}, "
             f"{c['uncompared']} markers uncompared after them")
-    times = gibbs_times(Z, y, dev)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    times = gibbs_times(Z, y, dev, mhz)
     chain = gibbs_times(Z[:32], y[:32], dev)  # one CTA: the chain alone
     del Z
     torch.cuda.empty_cache()
@@ -1897,9 +1951,14 @@ def run_bayes_phase(d: str, prefix: str, pheno: str, cpu, dev, smi: str):
         t["max_abs_err"] = max(x["max_abs_err"] for x in c)
         t["plain_ms"] = c[0]["plain_ms"]
         t["delta_flips"] = sum(len(x["flips"]) for x in c)
+        lib = (f", torch.linalg.cholesky + cholesky_inverse of the Cb batch "
+               f"{t['library_ms']:.4f} ms" if "library_ms" in t else "")
         say(f"phase 13 {name} ({smi}): one sweep at m = {s1['m_snps']}, n = {N_PHENO}: "
-            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.1f} ms, bound {t['bound'][0]:.4f} ms "
-            f"({t['bound'][1]}); the chain alone, n = 32: {t['chain_ms']:.4f} ms); at m = "
+            f"{t['ms']:.4f} ms; pre-pass {t['prepass_ms']:.4f} + serial pass "
+            f"{t['serial_ms']:.4f} ms ({t['plan']['path']} path, P = {t['plan']['P']} CTAs of "
+            f"S = {t['plan']['S']} samples){lib}; plain {t['plain_ms']:.1f} ms, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), chain floor {t['chain_floor_ms']:.4f} "
+            f"ms at {mhz:.0f} MHz; the chain alone, n = 32: {t['chain_ms']:.4f} ms; at m = "
             f"{cpu['full'].m}: {t['m_all_ms']:.3f} ms (bound {t['m_all_bound'][0]:.4f} ms)")
     say(f"phase 13 done in {time.monotonic() - t0:.2f} s")
     return total, times
@@ -3963,9 +4022,15 @@ def run_phases(d: str, dev, smi: str, pipeline: KmerPipeline) -> int:
         *({"name": name, "route": "cuda", "source": src + "gibbs.cu",
            "replaces": "janusx_tpu/gs/bayes.py:" + line, "launches": paths["bayes"][name],
            "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
-           "bound_ms": g["bound"][0], "bound_by": g["bound"][1], "library_ms": None,
-           # the dependency chain alone (n = 32 samples: one CTA, no grid
-           # barrier wait), and one sweep at every QC'd SNP of phase 5's panel
+           "bound_ms": g["bound"][0], "bound_by": g["bound"][1],
+           # G2's: the pre-pass's factorizations by torch.linalg (a yardstick)
+           "library_ms": g.get("library_ms"),
+           # the pre-pass and the serial pass apart, the serial pass's path
+           # and its chain floor (csrc/gibbs.cu)
+           "prepass_ms": g["prepass_ms"], "serial_ms": g["serial_ms"],
+           "path": g["plan"]["path"], "chain_floor_ms": g["chain_floor_ms"],
+           # the dependency chain alone (n = 32 samples: one CTA), and one
+           # sweep at every QC'd SNP of phase 5's panel
            "chain_ms": g["chain_ms"], "all_snps_ms": g["m_all_ms"],
            "all_snps_bound_ms": g["m_all_bound"][0],
            "delta_flips": g["delta_flips"], "launches_by_path": by_path(name),

@@ -14,7 +14,8 @@ Two kernels carry the ``jx gwas -lmm`` scan (the JAX package's only two
 
 Two more carry the Gibbs samplers of ``jx gs -BayesA/-BayesB/-BayesCpi``,
 whose reference is an XLA loop with no Pallas (janusx_tpu/gs/bayes.py), one
-launch per iteration each (csrc/gibbs.cu):
+sweep per iteration each (csrc/gibbs.cu: a pre-pass over every block, then
+the serial pass over the blocks; one counted launch per sweep):
 
 - G1 ``gibbs_sweep_marker``: the per-marker spike-and-slab sweep of
   BayesB and BayesCpi (``_gibbs``);
@@ -24,7 +25,8 @@ launch per iteration each (csrc/gibbs.cu):
 All are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
 ``build/janusx_tpu_torch/`` (keyed on a hash of the sources and flags) and
 bound with ``ctypes``. A wrapper takes its plain-PyTorch version only for
-tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
+tensors on the CPU (for G1 and G2 the plain mirror of the kernel's
+schedule); for a CUDA tensor it launches the kernel or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
@@ -112,10 +114,14 @@ def _lib() -> ctypes.CDLL:
     lib.jx_decode_rotate.restype = i
     lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.jx_grid_lattice.restype = i
-    lib.jx_gibbs_marker.argtypes = [p] * 14 + [i] * 4 + [p]
+    lib.jx_gibbs_marker.argtypes = [p] * 15 + [i] * 6 + [p]
     lib.jx_gibbs_marker.restype = i
-    lib.jx_gibbs_block_mvn.argtypes = [p] * 11 + [i] * 3 + [p]
+    lib.jx_gibbs_block_mvn.argtypes = [p] * 12 + [i] * 5 + [p]
     lib.jx_gibbs_block_mvn.restype = i
+    lib.jx_gibbs_plan.argtypes = [i, i, i, i, p]
+    lib.jx_gibbs_plan.restype = i
+    lib.jx_gibbs_record_floats.argtypes = [i]
+    lib.jx_gibbs_record_floats.restype = i
     return lib
 
 
@@ -509,11 +515,135 @@ def gibbs_sweep_block_mvn_plain(Zb, Gb, x2, beta, var_b, z, rchi, r, scal) -> No
         var_b[b] = torch.where(x21 > 0, (s0_b + b_new * b_new) / rchi[b], vb_fill)
 
 
-def _gibbs_work(C: int, dev) -> torch.Tensor:
-    """The kernels' scratch for the partial Z1·r: two buffers of C floats
-    per CTA, at most one CTA per SM (csrc/gibbs.cu plan)."""
+def gibbs_marker_prepass_plain(x2, beta, var_b, rn, ru, scal, method: str) -> dict:
+    """Plain mirror of G1's pre-pass (csrc/gibbs.cu gibbs_marker_prep_kernel):
+    every block's chain constants from the state carried into the sweep,
+    each (n_blocks, C). With Cj = x2/σe² + 1/vb and var = 1/Cj: ``a`` =
+    1/(σe² Cj), ``h`` = Cj a²/2, ``c`` = logit(π) + (log var − log vb)/2,
+    ``thr`` = logit(u), ``sd_rn`` = √var · rn, so that marker j's step is
+    mean = rhs·a, δ = h·rhs² + c > thr, b = δ and x2 > 0 ? mean + sd_rn : 0."""
+    var_e, var_slab, pi = scal[0], scal[1], scal[2]
+    vb = var_b if method == "B" else var_slab.expand_as(x2)
+    cj = x2 / var_e + 1.0 / vb
+    var = 1.0 / cj
+    lp = torch.log(pi) - torch.log1p(-pi)
+    a = 1.0 / (var_e * cj)
+    return {"a": a, "h": 0.5 * cj * a * a,
+            "c": lp + 0.5 * (torch.log(var) - torch.log(vb)),
+            "thr": torch.log(ru) - torch.log1p(-ru), "sd_rn": torch.sqrt(var) * rn}
+
+
+def gibbs_sweep_marker_hoisted_plain(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r, scal,
+                                     method: str) -> torch.Tensor:
+    """Plain mirror of G1's schedule, the CPU path of ``gibbs_sweep_marker``:
+    the constants of every block first (``gibbs_marker_prepass_plain``),
+    then block by block the chain in the kernel's form: rhs = Z1 r + x2
+    b_old; at marker j the step of ``gibbs_marker_prepass_plain``, db_j = b_j − b_old_j, and the later
+    markers' right-hand sides take −G1[k, j] db_j; then r −= Z1ᵀ db. The
+    same sweep as ``gibbs_sweep_marker_plain`` up to rounding. Updates
+    ``beta``, ``var_b`` (BayesB only) and ``r`` in place; returns δ."""
+    k = gibbs_marker_prepass_plain(x2, beta, var_b, rn, ru, scal, method)
+    s0_b, vb_fill = scal[3], scal[4]
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
+    delta = torch.zeros_like(beta)
+    for b in range(Zb.shape[0]):
+        Z1, G1, x21, b_old = Zb[b], Gb[b], x2[b], beta[b].clone()
+        rhs = Z1 @ r + x21 * b_old
+        take = x21 > 0
+        b_new, db = torch.zeros_like(b_old), torch.zeros_like(b_old)
+        steps = zip(*(v.unbind() for v in (k["a"][b], k["h"][b], k["c"][b], k["thr"][b],
+                                            k["sd_rn"][b], take, b_old)))
+        for j, (a, h, c, thr, sd, real, bo) in enumerate(steps):
+            mean = rhs[j] * a
+            d = h * rhs[j] * rhs[j] + c > thr
+            delta[b, j] = d
+            b_new[j] = torch.where(d & real, mean + sd, zero)
+            db[j] = b_new[j] - bo
+            rhs[j + 1:] -= G1[j + 1:, j] * db[j]
+        r.sub_(db @ Z1)
+        beta[b] = b_new
+        if method == "B":
+            vb = torch.where(delta[b] > 0, (s0_b + b_new * b_new) / rca[b], s0_b / rci[b])
+            var_b[b] = torch.where(take, vb, vb_fill)
+    return delta
+
+
+def gibbs_block_mvn_prepass_plain(Gb, x2, beta, var_b, z, scal):
+    """Plain mirror of G2's pre-pass (csrc/gibbs.cu gibbs_mvn_prep_kernel),
+    every block at once from the state carried into the sweep: Cb = G1 +
+    diag(σe²/var_b) + 1e-4 I, L = chol(Cb), X = L⁻¹; returns M = Cb⁻¹ = XᵀX
+    (n_blocks, C, C) and w = Xᵀ(X G1 b_old + √σe² z) (n_blocks, C), so a
+    block's draw is M (Z1 r) + w: the reference's mean L⁻ᵀL⁻¹(Z1 r + G1
+    b_old) plus noise √σe² L⁻ᵀ z."""
+    var_e = scal[0]
+    C = Gb.shape[1]
+    eye = torch.eye(C, dtype=torch.float32, device=Gb.device)
+    gbo = (Gb @ beta[..., None])[..., 0]
+    dinv = torch.where(x2 > 0, var_e / torch.clamp_min(var_b, 1e-12), 1.0)
+    L = torch.linalg.cholesky(Gb + torch.diag_embed(dinv) + 1e-4 * eye)
+    X = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    Xt = X.transpose(1, 2)
+    t = (X @ gbo[..., None])[..., 0] + torch.sqrt(var_e) * z
+    return Xt @ X, (Xt @ t[..., None])[..., 0]
+
+
+def gibbs_block_mvn_serial_plain(Zb, x2, beta, var_b, rchi, r, scal, M, w) -> None:
+    """Plain mirror of G2's serial pass: per block u = Z1 r, b = M u + w (0
+    where x2 = 0), r −= Z1ᵀ(b − b_old), var_b = (s0_b + b²)/χ² (its fill
+    value where x2 = 0). Updates ``beta``, ``var_b`` and ``r`` in place."""
+    s0_b, vb_fill = scal[3], scal[4]
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
+    for b in range(Zb.shape[0]):
+        Z1, x21 = Zb[b], x2[b]
+        b_new = torch.where(x21 > 0, M[b] @ (Z1 @ r) + w[b], zero)
+        r.sub_((b_new - beta[b]) @ Z1)
+        beta[b] = b_new
+        var_b[b] = torch.where(x21 > 0, (s0_b + b_new * b_new) / rchi[b], vb_fill)
+
+
+def gibbs_sweep_block_mvn_hoisted_plain(Zb, Gb, x2, beta, var_b, z, rchi, r, scal) -> None:
+    """Plain mirror of G2's schedule, the CPU path of
+    ``gibbs_sweep_block_mvn``: the pre-pass over every block, then the
+    serial pass. The same sweep as ``gibbs_sweep_block_mvn_plain`` up to
+    rounding."""
+    M, w = gibbs_block_mvn_prepass_plain(Gb, x2, beta, var_b, z, scal)
+    gibbs_block_mvn_serial_plain(Zb, x2, beta, var_b, rchi, r, scal, M, w)
+
+
+# the serial pass's paths (jx_gibbs_plan)
+GIBBS_PATHS = ("cluster", "grid", "chunked")
+_GIBBS_ALG = {"marker": 1, "mvn": 2}
+
+
+def gibbs_record_floats(kind: str) -> int:
+    """Floats per block of the pre-pass's records for ``kind`` ("marker":
+    G1, "mvn": G2), as the library lays them out (csrc/gibbs.cu)."""
+    return _lib().jx_gibbs_record_floats(_GIBBS_ALG[kind])
+
+
+def gibbs_plan(kind: str, n: int, C: int, path: str = "auto") -> dict:
+    """The serial pass's plan on the current card for ``kind`` ("marker":
+    G1, "mvn": G2) at n samples and C markers a block: its path
+    ("cluster", "grid" or "chunked"), P CTAs of S samples (chunks of SC),
+    whether the next block's rows are copied behind the current one, and
+    the shared memory per CTA. ``path="grid"`` skips the cluster path."""
+    out = (ctypes.c_longlong * 7)()
+    _raise_on(_lib().jx_gibbs_plan(_GIBBS_ALG[kind], n, C, int(path == "grid"), out),
+              "gibbs_plan")
+    return {"path": GIBBS_PATHS[out[0]], "P": out[1], "S": out[2], "SC": out[3],
+            "rows_prefetched": bool(out[5]), "smem_bytes": out[6]}
+
+
+def gibbs_scratch(kind: str, nb: int, C: int, dev) -> dict:
+    """The kernels' scratch: the pre-pass's records
+    (``gibbs_record_floats`` a block: 39,424 bytes for G1, 67,584 for G2),
+    and the grid path's
+    partial Z1·r (two buffers of C floats per CTA, at most one CTA per SM)
+    and barrier counter."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return torch.empty(2 * sms * C, dtype=torch.float32, device=dev)
+    return {"rec": torch.empty(nb * gibbs_record_floats(kind), dtype=torch.float32, device=dev),
+            "work": torch.empty(2 * sms * C, dtype=torch.float32, device=dev),
+            "counter": torch.empty(1, dtype=torch.int32, device=dev)}
 
 
 def _gibbs_check(Zb, Gb, x2, r, scal, vecs) -> tuple[int, int, int]:
@@ -533,32 +663,48 @@ def _gibbs_check(Zb, Gb, x2, r, scal, vecs) -> tuple[int, int, int]:
     return nb, C, n
 
 
+def _gibbs_options(kind: str, nb: int, C: int, dev, path: str, phases: int,
+                   scratch) -> dict:
+    if path not in ("auto", "grid") or phases not in (1, 2, 3):
+        raise ValueError(f"Gibbs sweep: path={path!r} (auto|grid), phases={phases!r} (1|2|3)")
+    if scratch is None:
+        if phases != 3:
+            raise ValueError("Gibbs sweep: a pre-pass or serial pass alone needs the "
+                             "caller's scratch")
+        scratch = gibbs_scratch(kind, nb, C, dev)
+    return scratch
+
+
 def gibbs_sweep_marker(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
                        beta: torch.Tensor, var_b: torch.Tensor, rn: torch.Tensor,
                        ru: torch.Tensor, rca: torch.Tensor, rci: torch.Tensor,
-                       r: torch.Tensor, scal: torch.Tensor, method: str) -> torch.Tensor:
+                       r: torch.Tensor, scal: torch.Tensor, method: str, *,
+                       path: str = "auto", phases: int = 3, scratch=None) -> torch.Tensor:
     """One BayesB / BayesCpi Gibbs sweep over every marker block (G1): f32
     marker rows Zb (n_blocks, C, n), block Grams Gb (n_blocks, C, C), x2 =
     Σ Zb² (n_blocks, C), the sweep's draws rn, ru, rca, rci (n_blocks, C),
     the residual r (n,) and ``scal``. Updates beta, var_b (BayesB) and r in
-    place; returns δ (n_blocks, C)."""
+    place; returns δ (n_blocks, C). On the card: ``path="grid"`` skips the
+    cluster path (``gibbs_plan``); ``phases`` 1 or 2 runs the pre-pass or
+    the serial pass alone on the caller's ``scratch`` (``gibbs_scratch``),
+    to time them apart."""
     if method not in GIBBS_MARKER_METHODS:
         raise ValueError(f"gibbs_sweep_marker method={method!r}: expected one of "
                          f"{tuple(GIBBS_MARKER_METHODS)}")
     if Zb.device.type == "cpu":
-        return gibbs_sweep_marker_plain(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r, scal,
-                                        method)
+        return gibbs_sweep_marker_hoisted_plain(Zb, Gb, x2, beta, var_b, rn, ru, rca, rci, r,
+                                                scal, method)
     nb, C, n = _gibbs_check(Zb, Gb, x2, r, scal, (beta, var_b, rn, ru, rca, rci))
     dev = Zb.device
+    sc = _gibbs_options("marker", nb, C, dev, path, phases, scratch)
     delta = torch.empty_like(beta)
-    work = _gibbs_work(C, dev)
-    counter = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().jx_gibbs_marker(
             Zb.data_ptr(), Gb.data_ptr(), x2.data_ptr(), beta.data_ptr(), var_b.data_ptr(),
             delta.data_ptr(), rn.data_ptr(), ru.data_ptr(), rca.data_ptr(), rci.data_ptr(),
-            r.data_ptr(), scal.data_ptr(), work.data_ptr(), counter.data_ptr(), nb, C, n,
-            GIBBS_MARKER_METHODS[method], torch.cuda.current_stream(dev).cuda_stream)
+            r.data_ptr(), scal.data_ptr(), sc["rec"].data_ptr(), sc["work"].data_ptr(),
+            sc["counter"].data_ptr(), nb, C, n, GIBBS_MARKER_METHODS[method], phases,
+            int(path == "grid"), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gibbs_sweep_marker")
     gibbs_sweep_marker.launches += 1
     return delta
@@ -569,22 +715,24 @@ gibbs_sweep_marker.launches = 0
 
 def gibbs_sweep_block_mvn(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
                           beta: torch.Tensor, var_b: torch.Tensor, z: torch.Tensor,
-                          rchi: torch.Tensor, r: torch.Tensor, scal: torch.Tensor) -> None:
+                          rchi: torch.Tensor, r: torch.Tensor, scal: torch.Tensor, *,
+                          path: str = "auto", phases: int = 3, scratch=None) -> None:
     """One blocked BayesA Gibbs sweep (G2): each block of C markers drawn
     jointly from N(Cb⁻¹ rhs, σe² Cb⁻¹), Cb = G1 + diag(σe²/var_b) + 1e-4 I,
     from the standard normals z and the χ² draws rchi (n_blocks, C); other
-    operands as gibbs_sweep_marker's. Updates beta, var_b and r in place."""
+    operands and the keywords as gibbs_sweep_marker's. Updates beta, var_b
+    and r in place."""
     if Zb.device.type == "cpu":
-        return gibbs_sweep_block_mvn_plain(Zb, Gb, x2, beta, var_b, z, rchi, r, scal)
+        return gibbs_sweep_block_mvn_hoisted_plain(Zb, Gb, x2, beta, var_b, z, rchi, r, scal)
     nb, C, n = _gibbs_check(Zb, Gb, x2, r, scal, (beta, var_b, z, rchi))
     dev = Zb.device
-    work = _gibbs_work(C, dev)
-    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    sc = _gibbs_options("mvn", nb, C, dev, path, phases, scratch)
     with torch.cuda.device(dev):
         err = _lib().jx_gibbs_block_mvn(
             Zb.data_ptr(), Gb.data_ptr(), x2.data_ptr(), beta.data_ptr(), var_b.data_ptr(),
-            z.data_ptr(), rchi.data_ptr(), r.data_ptr(), scal.data_ptr(), work.data_ptr(),
-            counter.data_ptr(), nb, C, n, torch.cuda.current_stream(dev).cuda_stream)
+            z.data_ptr(), rchi.data_ptr(), r.data_ptr(), scal.data_ptr(), sc["rec"].data_ptr(),
+            sc["work"].data_ptr(), sc["counter"].data_ptr(), nb, C, n, phases,
+            int(path == "grid"), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gibbs_sweep_block_mvn")
     gibbs_sweep_block_mvn.launches += 1
 

@@ -29,7 +29,9 @@ KING's tile pair, the joint GLS of the combo scan) and of ``jx fastpop``
 and ``jx tree`` (the admixture fit, the IBS distance) on the card against
 the same call on the CPU, each at the bound stated at its test. The Gibbs
 sweeps of ``jx gs -BayesA/B/Cpi`` (G1, G2) against their plain versions
-with the same draws: δ identical, β within rtol 1e-4 (G1) and 1e-3 (G2).
+with the same draws: δ identical, β within rtol 1e-4 (G1) and 1e-3 (G2),
+on both of the serial pass's paths; G2's pre-pass against the
+torch.linalg batch within 1e-4 of each block's largest entry.
 """
 
 import numpy as np
@@ -674,10 +676,11 @@ def test_gibbs_sweep_block_mvn_matches_plain(dev):
 def test_gibbs_sweeps_ragged_shapes(dev, m, n, C):
     """Both kernels at ragged shapes (a last block of padding markers, a
     last CTA with fewer samples, C < 128, more than one sample per thread
-    of a CTA's slice) and past the samples whose slice fits in shared
-    memory (about 40,000 on 132 SMs: the slice streamed in chunks, a
-    2-sample last chunk at n = 41,000 and 5 chunks a CTA at n = 200,000):
-    δ identical, values within their bounds."""
+    of a CTA's slice), on each path of the serial pass (the cluster at n
+    <= 1,936, the grid with the rows double buffered at n = 5,000) and past
+    the samples whose slice fits in shared memory (on 132 SMs: G1's slice
+    streamed in two chunks a CTA at n = 41,000, and both kernels' in four
+    to six at n = 200,000): δ identical, values within their bounds."""
     Zb, Gb, x2, r, scal = _gibbs_problem(dev, m=m, n=n, seed=m, C=C)
     nb = Zb.shape[0]
     rn, ru, rca, rci = _gibbs_draws(dev, (nb, C), 1)
@@ -698,6 +701,94 @@ def test_gibbs_sweeps_ragged_shapes(dev, m, n, C):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
     for got, want in zip(out["kernel"][2], out["plain"][2]):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("m", [2048, 300])
+def test_gibbs_mvn_prepass_matches_linalg(dev, m):
+    """G2's pre-pass alone (phases=1) against the torch.linalg batch: each
+    block's M = Cb⁻¹ within 1e-4 of torch.cholesky_inverse(cholesky(Cb))'s
+    largest entry (f32 inverses of a well-conditioned Cb, ~1e-6 apart),
+    padded to 128 x 128 with the identity's inverse; w = Cb⁻¹ G1 b_old +
+    √σe² L⁻ᵀ z and the record's b_old, x2 and χ² draws against the plain
+    mirror of the pre-pass, w within 1e-4 of its largest entry. At m = 300
+    the last block is padding past marker 44."""
+    Zb, Gb, x2, r, scal = _gibbs_problem(dev, m=m, seed=m)
+    nb, C, _ = Zb.shape
+    z, _, rchi, _ = _gibbs_draws(dev, (nb, C), 3)
+    g = torch.Generator().manual_seed(m)
+    beta = (0.01 * torch.randn((nb, C), generator=g)).to(dev) * (x2 > 0)
+    var_b = (float(scal[4]) * (0.5 + torch.rand((nb, C), generator=g))).to(dev)
+    sc = kernels.gibbs_scratch("mvn", nb, C, dev)
+    kernels.gibbs_sweep_block_mvn(Zb, Gb, x2, beta, var_b, z, rchi, r, scal, phases=1,
+                                  scratch=sc)
+    torch.cuda.synchronize()
+    rec = sc["rec"].view(nb, kernels.gibbs_record_floats("mvn"))
+    K = kernels.GIBBS_CMAX
+    M, w, bo, xx, chi = (rec[:, :K * K].view(nb, K, K), *rec[:, K * K:].view(nb, 4, K).unbind(1))
+    dinv = torch.where(x2 > 0, scal[0] / var_b.clamp_min(1e-12), 1.0)
+    Cb = Gb + torch.diag_embed(dinv) + 1e-4 * torch.eye(C, device=dev)
+    want = torch.cholesky_inverse(torch.linalg.cholesky(Cb))
+    for b in range(nb):
+        err = float((M[b] - want[b]).abs().max())
+        assert err <= 1e-4 * float(want[b].abs().max()), f"block {b}: M off by {err:.3g}"
+    _, w_ref = kernels.gibbs_block_mvn_prepass_plain(Gb, x2, beta, var_b, z, scal)
+    torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-4 * float(w_ref.abs().max()))
+    assert torch.equal(bo, beta) and torch.equal(xx, x2) and torch.equal(chi, rchi)
+
+
+def _gibbs_crossover(kind: str) -> int:
+    """The largest n whose serial pass the plan puts on the cluster path."""
+    lo, hi = 32, 1 << 16
+    assert kernels.gibbs_plan(kind, lo, 128)["path"] == "cluster"
+    assert kernels.gibbs_plan(kind, hi, 128)["path"] != "cluster"
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if kernels.gibbs_plan(kind, mid, 128)["path"] == "cluster" else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("kind", ["marker", "mvn"])
+def test_gibbs_cluster_path_matches_grid_path(dev, kind):
+    """At the crossover n (the largest n on the cluster path; one more
+    sample takes the grid path), one sweep on the cluster path, the same
+    sweep forced onto the cooperative grid path, and one at n + 1, each
+    against the plain version from the same state and draws: δ identical,
+    values within rtol 1e-4 (G1) / 1e-3 (G2) as the other sweep tests; the
+    two paths within the same bounds of each other."""
+    n_c = _gibbs_crossover(kind)
+    assert kernels.gibbs_plan(kind, n_c, 128)["P"] > 8  # a non-portable cluster
+    assert kernels.gibbs_plan(kind, n_c + 1, 128)["path"] == "grid"
+    assert kernels.gibbs_plan(kind, n_c, 128, path="grid")["path"] == "grid"
+    rtol = 1e-4 if kind == "marker" else 1e-3
+    close = lambda got, want: torch.testing.assert_close(
+        got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
+    for n in (n_c, n_c + 1):
+        Zb, Gb, x2, r, scal = _gibbs_problem(dev, m=640, n=n, seed=n)
+        nb, C, _ = Zb.shape
+        rn, ru, rca, rci = _gibbs_draws(dev, (nb, C), 2)
+        start = [torch.full((nb, C), 0.01, device=dev),
+                 torch.full((nb, C), float(scal[4]), device=dev), r]
+        out = {}
+        for name, fn, path in (("auto", kernels.gibbs_sweep_marker, "auto"),
+                               ("grid", kernels.gibbs_sweep_marker, "grid"),
+                               ("plain", kernels.gibbs_sweep_marker_plain, None)):
+            st = [t.clone() for t in start]
+            kw = {} if path is None else {"path": path}
+            if kind == "marker":
+                d = fn(Zb, Gb, x2, st[0], st[1], rn, ru, rca, rci, st[2], scal, "B", **kw)
+            else:
+                fn = {"auto": kernels.gibbs_sweep_block_mvn, "grid": kernels.gibbs_sweep_block_mvn,
+                      "plain": kernels.gibbs_sweep_block_mvn_plain}[name]
+                d = fn(Zb, Gb, x2, st[0], st[1], rn, rca, st[2], scal, **kw)
+            out[name] = (d, st)
+        torch.cuda.synchronize()
+        for name in ("auto", "grid"):
+            if kind == "marker":
+                assert torch.equal(out[name][0], out["plain"][0]), f"n = {n} {name}: δ differ"
+            for got, want in zip(out[name][1], out["plain"][1]):
+                close(got, want)
+        for got, want in zip(out["auto"][1], out["grid"][1]):
+            close(got, want)
 
 
 def test_gibbs_wrapper_raises_when_the_build_fails(dev, monkeypatch):

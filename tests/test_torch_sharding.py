@@ -591,6 +591,46 @@ def test_distributed_recipe_single_process(mesh8, tmesh8):
             dist.make_global_snp_array(dist.global_snp_mesh(), block[:-1], m_total)
 
 
+NO_GROUP = 3  # tests/torch_dist_worker.py's exit code for a group that did not form
+
+
+def _free_port() -> int:
+    with socket.socket() as s:  # a free port, bound here and released
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_worker_pair(worker, port, out_dir, env, cwd, timeout=180):
+    """Both ranks of tests/torch_dist_worker.py on ``port``, their output in
+    files under ``out_dir`` (which also takes their results). When one rank
+    exits with NO_GROUP the other, which may wait for the group until its
+    timeout, is stopped. Returns (the processes, their outputs)."""
+    import time
+
+    out_dir.mkdir()
+    logs = [open(out_dir / f"rank{i}.log", "w+") for i in range(2)]
+    procs = [subprocess.Popen([sys.executable, worker, str(i), "2", str(port), str(out_dir)],
+                              stdout=log, stderr=subprocess.STDOUT, text=True, env=env, cwd=cwd)
+             for i, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() == NO_GROUP for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    return procs, outs
+
+
 def test_distributed_two_process_recipe(tmp_path, mesh8):
     """Two torch.distributed processes (gloo, JX_TPU_PLATFORM=cpu) run the
     whole parallel/distributed.py recipe (tests/torch_dist_worker.py);
@@ -602,28 +642,22 @@ def test_distributed_two_process_recipe(tmp_path, mesh8):
     from janusx_tpu.models.grm import grm_from_packed as j_grm
 
     worker = os.path.join(os.path.dirname(__file__), "torch_dist_worker.py")
-    with socket.socket() as s:  # a free port, bound here and released
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     env = dict(os.environ, JX_TPU_PLATFORM="cpu", JX_TPU_HISTORY_DB="0", OMP_NUM_THREADS="1")
     repo_root = os.path.dirname(os.path.dirname(worker))
     env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen([sys.executable, worker, str(i), "2", str(port), str(tmp_path)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              env=env, cwd=repo_root)
-             for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
+    # the port is bound here and released before rank 0 binds it, while other
+    # test workers open ports too; a worker that finds its group not formed
+    # exits with NO_GROUP, and the pair runs again on a fresh port
+    for attempt in range(3):
+        procs, outs = _run_worker_pair(worker, _free_port(), tmp_path / f"try{attempt}", env,
+                                       repo_root)
+        if all(p.returncode != NO_GROUP for p in procs):
+            break
     joined = "\n---\n".join(outs)
     assert all(p.returncode == 0 for p in procs), joined[-3000:]
     assert all("DIST_OK" in o for o in outs), joined[-3000:]
 
-    data = np.load(tmp_path / "dist_result.npz")
+    data = np.load(tmp_path / f"try{attempt}" / "dist_result.npz")
     rng2 = np.random.default_rng(7)
     G = rng2.integers(0, 3, size=(101, 24)).astype(np.float32)
     y = rng2.normal(size=24).astype(np.float32)

@@ -153,6 +153,9 @@ def _panel_run(dist, pid: int, inputs: str, outdir: str) -> None:
                  pwald=res.pwald)
 
 
+NO_GROUP = 3  # exit code: the process group did not form on the given port
+
+
 def main() -> int:
     pid, nproc, port, outdir = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                 sys.argv[4])
@@ -163,7 +166,10 @@ def main() -> int:
 
     config.set_full_f32_matmul()
     dist.initialize(coordinator=f"127.0.0.1:{port}", num_processes=nproc, process_id=pid)
-    assert dist.process_count() == nproc, dist.process_count()
+    if dist.process_count() != nproc:  # the group did not form on this port
+        print(f"DIST_NO_GROUP rank {pid} port {port}: {dist.process_count()} process(es)",
+              flush=True)
+        return NO_GROUP
     if len(sys.argv) > 5:
         _panel_run(dist, pid, sys.argv[5], outdir)
     else:
