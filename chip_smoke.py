@@ -1806,7 +1806,8 @@ FP32_CYCLES, SHFL_CYCLES = 4, 24
 
 
 def chain_floor_ms(kind: str, nb: int, C: int, S: int, P: int, mhz: float) -> float:
-    """The chain floor of one sweep: per block the dependent instructions
+    """The chain-floor model of one sweep (a model on the assumed latencies
+    above, not a measurement): per block the dependent instructions
     of the serial path (this CTA's Z1 r in four accumulators over its half
     of S samples, the sum of the P partials, G1's C marker steps of five
     FP32 operations and a shuffle or G2's 128 x 128 product in 16-long
@@ -1826,9 +1827,12 @@ def gibbs_times(Z, y, dev, mhz: float = 0.0) -> dict:
     after 1), with the bytes and operations of one sweep for the bound.
     With ``mhz`` (the SM clock) also each kernel's pre-pass and serial pass
     timed apart (the serial pass from the pre-pass's records of the state
-    it starts from), the serial pass's plan and chain floor, and G2's
-    yardstick: torch.linalg.cholesky + torch.cholesky_inverse of the
-    (nb, C, C) batch of Cb, the pre-pass's factorizations by the library."""
+    it starts from), the serial pass's plan and chain-floor model, and G2's
+    yardstick: torch.linalg.cholesky_ex + torch.cholesky_inverse of the
+    (nb, C, C) batch of Cb, the pre-pass's factorizations by the library
+    (cholesky_ex: torch.linalg.cholesky would wait for the host to read its
+    error flags on every call), the median of five windows of 5 calls after
+    3."""
     import torch
 
     from janusx_tpu_torch.gs.bayes import GeneratorDraws, block_markers
@@ -1867,8 +1871,36 @@ def gibbs_times(Z, y, dev, mhz: float = 0.0) -> dict:
     if mhz:
         dinv = torch.where(x2 > 0, scal[0] / var_b.clamp_min(1e-12), 1.0)
         Cb = Gb + torch.diag_embed(dinv) + 1e-4 * torch.eye(C, device=dev)
-        out["gibbs_sweep_block_mvn"]["library_ms"] = cuda_ms(
-            lambda: torch.cholesky_inverse(torch.linalg.cholesky(Cb)), iters=5, warmup=1)
+        lib = lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(Cb)[0])
+        windows = [cuda_ms(lib, iters=5, warmup=3) for _ in range(5)]
+        out["gibbs_sweep_block_mvn"]["library_ms"] = float(np.median(windows))
+        out["gibbs_sweep_block_mvn"]["library_windows"] = windows
+    return out
+
+
+def gibbs_path_times(m: int, dev) -> dict:
+    """The serial pass's two paths side by side: CUDA-event ms of one sweep
+    of each kernel at n_c, the largest n the plan puts on the cluster path,
+    and at n_c + 1, where it takes the cooperative grid (gibbs_times), on m
+    standard-normal markers and a trait made on the card from a seed.
+    Returns {kernel: {"n_c", "cluster_ms", "grid_ms"}}."""
+    import torch
+
+    from janusx_tpu_torch.ops import kernels
+
+    out = {}
+    for name, kind in (("gibbs_sweep_marker", "marker"), ("gibbs_sweep_block_mvn", "mvn")):
+        n_c = kernels.gibbs_cluster_limit(kind)
+        t = out[name] = {"n_c": n_c}
+        for path, n in (("cluster", n_c), ("grid", n_c + 1)):
+            require(kernels.gibbs_plan(kind, n, 128)["path"] == path,
+                    f"phase 13 {kind} at n = {n}: not the {path} path")
+            g = torch.Generator(device=dev).manual_seed(n)
+            Z = torch.randn((n, m), generator=g, device=dev)
+            y = (Z[:, :1000].sum(1) * 0.02 + torch.randn(n, generator=g, device=dev)).cpu()
+            t[path + "_ms"] = gibbs_times(Z, y.numpy(), dev)[name]["ms"]
+            del Z
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1943,23 +1975,30 @@ def run_bayes_phase(d: str, prefix: str, pheno: str, cpu, dev, smi: str):
     torch.cuda.empty_cache()
     big = gibbs_times(standardized(cpu["full"], keep, dev), y, dev)
     torch.cuda.empty_cache()
+    paths = gibbs_path_times(s1["m_snps"], dev)
     for name, t in times.items():
         t["chain_ms"], t["m_all_ms"] = chain[name]["ms"], big[name]["ms"]
         t["m_all_bound"] = big[name]["bound"]
+        t["paths"] = paths[name]
         # G1's row is BayesB's (the sweep timed above); its error covers BayesCpi too
         c = [check["A"]] if name == "gibbs_sweep_block_mvn" else [check["B"], check["Cpi"]]
         t["max_abs_err"] = max(x["max_abs_err"] for x in c)
         t["plain_ms"] = c[0]["plain_ms"]
         t["delta_flips"] = sum(len(x["flips"]) for x in c)
-        lib = (f", torch.linalg.cholesky + cholesky_inverse of the Cb batch "
-               f"{t['library_ms']:.4f} ms" if "library_ms" in t else "")
+        lib = (f", torch.linalg.cholesky_ex + cholesky_inverse of the Cb batch "
+               f"{t['library_ms']:.4f} ms (median of the windows "
+               f"{[round(w, 4) for w in t['library_windows']]})" if "library_ms" in t else "")
         say(f"phase 13 {name} ({smi}): one sweep at m = {s1['m_snps']}, n = {N_PHENO}: "
             f"{t['ms']:.4f} ms; pre-pass {t['prepass_ms']:.4f} + serial pass "
             f"{t['serial_ms']:.4f} ms ({t['plan']['path']} path, P = {t['plan']['P']} CTAs of "
             f"S = {t['plan']['S']} samples){lib}; plain {t['plain_ms']:.1f} ms, bound "
-            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), chain floor {t['chain_floor_ms']:.4f} "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), chain-floor model (latencies assumed: "
+            f"FP32 {FP32_CYCLES}, shuffle {SHFL_CYCLES} cycles) {t['chain_floor_ms']:.4f} "
             f"ms at {mhz:.0f} MHz; the chain alone, n = 32: {t['chain_ms']:.4f} ms; at m = "
-            f"{cpu['full'].m}: {t['m_all_ms']:.3f} ms (bound {t['m_all_bound'][0]:.4f} ms)")
+            f"{cpu['full'].m}: {t['m_all_ms']:.3f} ms (bound {t['m_all_bound'][0]:.4f} ms); "
+            f"the serial pass's paths at m = {s1['m_snps']} on random markers: the cluster at "
+            f"n = {t['paths']['n_c']} {t['paths']['cluster_ms']:.4f} ms, the grid at n = "
+            f"{t['paths']['n_c'] + 1} {t['paths']['grid_ms']:.4f} ms")
     say(f"phase 13 done in {time.monotonic() - t0:.2f} s")
     return total, times
 
@@ -4025,10 +4064,9 @@ def run_phases(d: str, dev, smi: str, pipeline: KmerPipeline) -> int:
            "bound_ms": g["bound"][0], "bound_by": g["bound"][1],
            # G2's: the pre-pass's factorizations by torch.linalg (a yardstick)
            "library_ms": g.get("library_ms"),
-           # the pre-pass and the serial pass apart, the serial pass's path
-           # and its chain floor (csrc/gibbs.cu)
+           # the pre-pass and the serial pass apart, and the serial pass's path
            "prepass_ms": g["prepass_ms"], "serial_ms": g["serial_ms"],
-           "path": g["plan"]["path"], "chain_floor_ms": g["chain_floor_ms"],
+           "path": g["plan"]["path"],
            # the dependency chain alone (n = 32 samples: one CTA), and one
            # sweep at every QC'd SNP of phase 5's panel
            "chain_ms": g["chain_ms"], "all_snps_ms": g["m_all_ms"],

@@ -18,12 +18,13 @@
 // 0.08 ms at 3.35 TB/s) and the block Grams Gb (m C 4 bytes). The blocks are
 // serial: block b's right-hand sides need the residual r after block b - 1,
 // so a sweep is the dependent latency of nb block steps. The chain floor
-// is that latency's instruction part: the dependent instructions of one
-// block's serial path times their latency (FP32 arithmetic 4 cycles, a
-// shuffle 24; assumed, not measured), times nb, at the SM clock
-// (chip_smoke.py chain_floor_ms). Per block: ceil(S / 8) + 3 arithmetic
-// and a shuffle for this CTA's Z1 r, ceil(P / 2) + 1 for the sum of the P
-// partials, ceil(C / 16) + 4 and three shuffles for r -= Z1^T db; G1 adds
+// is a model of that latency's instruction part: the dependent
+// instructions of one block's serial path times their latency (FP32
+// arithmetic 4 cycles, a shuffle 24; assumed, not measured), times nb, at
+// the SM clock (chip_smoke.py's chain_floor_ms, printed in phase 13). Per
+// block: ceil(S / 8) + 3 arithmetic and a shuffle for this CTA's Z1 r,
+// ceil(P / 2) + 1 for the sum of the P partials, ceil(C / 16) + 4 and
+// three shuffles for r -= Z1^T db; G1 adds
 // 1 + 5 C arithmetic and C shuffles for its chain (per marker step FMUL
 // rhs^2, FFMA log-odds, FSETP, FSEL db, the shuffle of db, FFMA of the next
 // right-hand side), G2 20 for its 128 x 128 product. Barriers, memory
@@ -67,11 +68,12 @@
 //      8 lanes of a warp (shuffles sum them); CTA 0's upper half writes b,
 //      var_b (and G1's delta).
 //   Paths, chosen by the plan from n: a cluster of P <= 16 CTAs
-//   (non-portable size, one GPC) while a CTA's slice fits twice beside the
-//   records (n up to 1,936 for G1 and 3,088 for G2): each CTA pushes its
-//   partials into every CTA's inbox with st.async, counted in bytes on the
-//   receiver's mbarrier, so a block needs no cluster-wide barrier (one at
-//   the start and one at the end of the sweep). Past that, a cooperative
+//   (non-portable size, one GPC) of at most 121 samples each, n up to
+//   1,936 (wider slices lose to the grid; at 121 G1's slice stops fitting
+//   twice beside its records): each CTA pushes its partials into every
+//   CTA's inbox with st.async, counted in bytes on the receiver's
+//   mbarrier, so a block needs no cluster-wide barrier (one at the start
+//   and one at the end of the sweep). Past that, a cooperative
 //   grid of P <= one CTA per SM with an atomic grid barrier and the
 //   partials in global memory (read through L2, two threads a marker),
 //   with r's slice kept in shared memory, or, past 37,092 (G1) and 57,156
@@ -102,6 +104,13 @@ constexpr int CMAX = 128;                       // markers per block (the refere
 constexpr int NT = 256;                         // threads per CTA, every kernel here
 constexpr int TILE = 8;                         // G2's register tiles: 16 x 16 tiles of 8 x 8
 constexpr int CLUSTER_MAX = 16;                 // non-portable cluster size: one GPC
+// the widest slice a cluster CTA takes: past it the grid's narrower slices
+// win (G2 at n = 3,088, 193 samples a CTA: 3.4459 ms a sweep against the
+// grid's 3.0957 at n = 3,089; at n = 1,936 the cluster 2.7237 ms, the grid
+// 3.1809 at 1,937; m = 50,000, chip_smoke.py phase 13's gibbs_path_times on
+// an NVIDIA H100 80GB HBM3 at 700 W); 121 is also where G1's two row
+// buffers stop fitting
+constexpr int CLUSTER_S_MAX = 121;
 // row k of a block's Gram left of the diagonal, G1[k][0 .. k - 1], padded
 // with zeros to a multiple of 4 floats, starts at tri_row(k)
 __host__ __device__ constexpr int tri_row(int k) {
@@ -973,10 +982,11 @@ bool cluster_fits(const void* fn, int P, size_t smem) {
 }
 
 // the serial pass's path and sample split: a cluster of at most 16 CTAs
-// when the slices and both row buffers fit, else a cooperative grid of at
-// most one CTA per SM, r kept in shared memory when its slice fits (the
-// rows double buffered when two fit), else chunks of SC samples
-int plan(int alg, int n, int C, bool force_grid, Plan& pl) {
+// of at most CLUSTER_S_MAX samples when the slices and both row buffers
+// fit, else a cooperative grid of at most one CTA per SM, r kept in shared
+// memory when its slice fits (the rows double buffered when two fit), else
+// chunks of SC samples
+int plan(int alg, int n, int C, Plan& pl) {
   int dev, sms, optin;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -985,13 +995,12 @@ int plan(int alg, int n, int C, bool force_grid, Plan& pl) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t cap = static_cast<size_t>(optin);
   auto bytes = [&](bool cl, int LDZ, int nz) { return sizeof(float) * sweep_floats(alg, cl, LDZ, nz); };
-  if (!force_grid) {
-    const int S = max(32, (n + CLUSTER_MAX - 1) / CLUSTER_MAX), P = (n + S - 1) / S;
-    const int LDZ = row_stride(S);
-    if (bytes(true, LDZ, 2) <= cap && cluster_fits(sweep_fn(alg, CLUSTER, C), P, bytes(true, LDZ, 2))) {
-      pl = {CLUSTER, P, S, S, LDZ, 1, bytes(true, LDZ, 2)};
-      return 0;
-    }
+  const int Sc = max(32, (n + CLUSTER_MAX - 1) / CLUSTER_MAX), Pc = (n + Sc - 1) / Sc;
+  const size_t smc = bytes(true, row_stride(Sc), 2);
+  if (Sc <= CLUSTER_S_MAX && smc <= cap &&
+      cluster_fits(sweep_fn(alg, CLUSTER, C), Pc, smc)) {
+    pl = {CLUSTER, Pc, Sc, Sc, row_stride(Sc), 1, smc};
+    return 0;
   }
   const int S = max(32, (n + sms - 1) / sms), P = (n + S - 1) / S, LDZ = row_stride(S);
   if (bytes(false, LDZ, 2) <= cap) {
@@ -1040,11 +1049,11 @@ constexpr size_t MVN_PREP_SMEM = sizeof(float) * (CMAX * (CMAX + 1) + 8 * CMAX +
 // The serial pass's plan for kernel ``alg`` (1 = G1, 2 = G2) at n samples
 // and C markers a block: out = {path (0 cluster, 1 grid, 2 chunked), P, S,
 // SC, LDZ, rows double buffered, shared bytes}.
-extern "C" int jx_gibbs_plan(int alg, int n, int C, int force_grid, long long* out) {
+extern "C" int jx_gibbs_plan(int alg, int n, int C, long long* out) {
   if ((alg != MARKER && alg != MVN) || n <= 0 || C <= 0 || C > CMAX)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  if (const int e = plan(alg, n, C, force_grid != 0, pl)) return e;
+  if (const int e = plan(alg, n, C, pl)) return e;
   const long long v[7] = {pl.mode, pl.P, pl.S, pl.SC, pl.LDZ, pl.zpre,
                           static_cast<long long>(pl.smem)};
   for (int i = 0; i < 7; ++i) out[i] = v[i];
@@ -1063,8 +1072,7 @@ extern "C" int jx_gibbs_marker(const float* Zb, const float* Gb, const float* x2
                                float* var_b, float* delta, const float* rn, const float* ru,
                                const float* rca, const float* rci, float* r,
                                const float* scal, float* rec, float* work, unsigned* counter,
-                               int nb, int C, int n, int method, int phases, int force_grid,
-                               void* stream) {
+                               int nb, int C, int n, int method, int phases, void* stream) {
   if (nb <= 0 || C <= 0 || C > CMAX || n <= 0 || (method != 1 && method != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1075,7 +1083,7 @@ extern "C" int jx_gibbs_marker(const float* Zb, const float* Gb, const float* x2
   }
   if (phases & 2) {
     Plan pl;
-    if (const int e = plan(MARKER, n, C, force_grid != 0, pl)) return e;
+    if (const int e = plan(MARKER, n, C, pl)) return e;
     void* args[] = {&Zb,  &rec, &beta, &var_b, &delta,  &r,       &scal,   &work,   &counter,
                     &nb,  &C,   &n,    &pl.S,  &pl.SC,  &pl.LDZ,  &pl.zpre, &method};
     return launch_sweep(MARKER, C, pl, args, counter, st);
@@ -1088,7 +1096,7 @@ extern "C" int jx_gibbs_block_mvn(const float* Zb, const float* Gb, const float*
                                   float* beta, float* var_b, const float* z,
                                   const float* rchi, float* r, const float* scal, float* rec,
                                   float* work, unsigned* counter, int nb, int C, int n,
-                                  int phases, int force_grid, void* stream) {
+                                  int phases, void* stream) {
   if (nb <= 0 || C <= 0 || C > CMAX || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (phases & 1) {
@@ -1099,7 +1107,7 @@ extern "C" int jx_gibbs_block_mvn(const float* Zb, const float* Gb, const float*
   }
   if (phases & 2) {
     Plan pl;
-    if (const int e = plan(MVN, n, C, force_grid != 0, pl)) return e;
+    if (const int e = plan(MVN, n, C, pl)) return e;
     float* delta = nullptr;
     int method = 0;
     void* args[] = {&Zb,  &rec, &beta, &var_b, &delta,  &r,       &scal,   &work,   &counter,

@@ -114,11 +114,11 @@ def _lib() -> ctypes.CDLL:
     lib.jx_decode_rotate.restype = i
     lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.jx_grid_lattice.restype = i
-    lib.jx_gibbs_marker.argtypes = [p] * 15 + [i] * 6 + [p]
+    lib.jx_gibbs_marker.argtypes = [p] * 15 + [i] * 5 + [p]
     lib.jx_gibbs_marker.restype = i
-    lib.jx_gibbs_block_mvn.argtypes = [p] * 12 + [i] * 5 + [p]
+    lib.jx_gibbs_block_mvn.argtypes = [p] * 12 + [i] * 4 + [p]
     lib.jx_gibbs_block_mvn.restype = i
-    lib.jx_gibbs_plan.argtypes = [i, i, i, i, p]
+    lib.jx_gibbs_plan.argtypes = [i, i, i, p]
     lib.jx_gibbs_plan.restype = i
     lib.jx_gibbs_record_floats.argtypes = [i]
     lib.jx_gibbs_record_floats.restype = i
@@ -621,17 +621,28 @@ def gibbs_record_floats(kind: str) -> int:
     return _lib().jx_gibbs_record_floats(_GIBBS_ALG[kind])
 
 
-def gibbs_plan(kind: str, n: int, C: int, path: str = "auto") -> dict:
+def gibbs_plan(kind: str, n: int, C: int) -> dict:
     """The serial pass's plan on the current card for ``kind`` ("marker":
     G1, "mvn": G2) at n samples and C markers a block: its path
     ("cluster", "grid" or "chunked"), P CTAs of S samples (chunks of SC),
     whether the next block's rows are copied behind the current one, and
-    the shared memory per CTA. ``path="grid"`` skips the cluster path."""
+    the shared memory per CTA."""
     out = (ctypes.c_longlong * 7)()
-    _raise_on(_lib().jx_gibbs_plan(_GIBBS_ALG[kind], n, C, int(path == "grid"), out),
-              "gibbs_plan")
+    _raise_on(_lib().jx_gibbs_plan(_GIBBS_ALG[kind], n, C, out), "gibbs_plan")
     return {"path": GIBBS_PATHS[out[0]], "P": out[1], "S": out[2], "SC": out[3],
             "rows_prefetched": bool(out[5]), "smem_bytes": out[6]}
+
+
+def gibbs_cluster_limit(kind: str, C: int = GIBBS_CMAX) -> int:
+    """The largest n whose serial pass ``gibbs_plan`` puts on the cluster
+    path on the current card; at one sample more it takes the grid path."""
+    lo, hi = 1, 1 << 20
+    if gibbs_plan(kind, lo, C)["path"] != "cluster":
+        return 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if gibbs_plan(kind, mid, C)["path"] == "cluster" else (lo, mid)
+    return lo
 
 
 def gibbs_scratch(kind: str, nb: int, C: int, dev) -> dict:
@@ -663,10 +674,9 @@ def _gibbs_check(Zb, Gb, x2, r, scal, vecs) -> tuple[int, int, int]:
     return nb, C, n
 
 
-def _gibbs_options(kind: str, nb: int, C: int, dev, path: str, phases: int,
-                   scratch) -> dict:
-    if path not in ("auto", "grid") or phases not in (1, 2, 3):
-        raise ValueError(f"Gibbs sweep: path={path!r} (auto|grid), phases={phases!r} (1|2|3)")
+def _gibbs_options(kind: str, nb: int, C: int, dev, phases: int, scratch) -> dict:
+    if phases not in (1, 2, 3):
+        raise ValueError(f"Gibbs sweep: phases={phases!r} (1|2|3)")
     if scratch is None:
         if phases != 3:
             raise ValueError("Gibbs sweep: a pre-pass or serial pass alone needs the "
@@ -679,15 +689,14 @@ def gibbs_sweep_marker(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
                        beta: torch.Tensor, var_b: torch.Tensor, rn: torch.Tensor,
                        ru: torch.Tensor, rca: torch.Tensor, rci: torch.Tensor,
                        r: torch.Tensor, scal: torch.Tensor, method: str, *,
-                       path: str = "auto", phases: int = 3, scratch=None) -> torch.Tensor:
+                       phases: int = 3, scratch=None) -> torch.Tensor:
     """One BayesB / BayesCpi Gibbs sweep over every marker block (G1): f32
     marker rows Zb (n_blocks, C, n), block Grams Gb (n_blocks, C, C), x2 =
     Σ Zb² (n_blocks, C), the sweep's draws rn, ru, rca, rci (n_blocks, C),
     the residual r (n,) and ``scal``. Updates beta, var_b (BayesB) and r in
-    place; returns δ (n_blocks, C). On the card: ``path="grid"`` skips the
-    cluster path (``gibbs_plan``); ``phases`` 1 or 2 runs the pre-pass or
-    the serial pass alone on the caller's ``scratch`` (``gibbs_scratch``),
-    to time them apart."""
+    place; returns δ (n_blocks, C). On the card, ``phases`` 1 or 2 runs the
+    pre-pass or the serial pass alone on the caller's ``scratch``
+    (``gibbs_scratch``), to time them apart."""
     if method not in GIBBS_MARKER_METHODS:
         raise ValueError(f"gibbs_sweep_marker method={method!r}: expected one of "
                          f"{tuple(GIBBS_MARKER_METHODS)}")
@@ -696,7 +705,7 @@ def gibbs_sweep_marker(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
                                                 scal, method)
     nb, C, n = _gibbs_check(Zb, Gb, x2, r, scal, (beta, var_b, rn, ru, rca, rci))
     dev = Zb.device
-    sc = _gibbs_options("marker", nb, C, dev, path, phases, scratch)
+    sc = _gibbs_options("marker", nb, C, dev, phases, scratch)
     delta = torch.empty_like(beta)
     with torch.cuda.device(dev):
         err = _lib().jx_gibbs_marker(
@@ -704,7 +713,7 @@ def gibbs_sweep_marker(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
             delta.data_ptr(), rn.data_ptr(), ru.data_ptr(), rca.data_ptr(), rci.data_ptr(),
             r.data_ptr(), scal.data_ptr(), sc["rec"].data_ptr(), sc["work"].data_ptr(),
             sc["counter"].data_ptr(), nb, C, n, GIBBS_MARKER_METHODS[method], phases,
-            int(path == "grid"), torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gibbs_sweep_marker")
     gibbs_sweep_marker.launches += 1
     return delta
@@ -716,7 +725,7 @@ gibbs_sweep_marker.launches = 0
 def gibbs_sweep_block_mvn(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
                           beta: torch.Tensor, var_b: torch.Tensor, z: torch.Tensor,
                           rchi: torch.Tensor, r: torch.Tensor, scal: torch.Tensor, *,
-                          path: str = "auto", phases: int = 3, scratch=None) -> None:
+                          phases: int = 3, scratch=None) -> None:
     """One blocked BayesA Gibbs sweep (G2): each block of C markers drawn
     jointly from N(Cb⁻¹ rhs, σe² Cb⁻¹), Cb = G1 + diag(σe²/var_b) + 1e-4 I,
     from the standard normals z and the χ² draws rchi (n_blocks, C); other
@@ -726,13 +735,13 @@ def gibbs_sweep_block_mvn(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
         return gibbs_sweep_block_mvn_hoisted_plain(Zb, Gb, x2, beta, var_b, z, rchi, r, scal)
     nb, C, n = _gibbs_check(Zb, Gb, x2, r, scal, (beta, var_b, z, rchi))
     dev = Zb.device
-    sc = _gibbs_options("mvn", nb, C, dev, path, phases, scratch)
+    sc = _gibbs_options("mvn", nb, C, dev, phases, scratch)
     with torch.cuda.device(dev):
         err = _lib().jx_gibbs_block_mvn(
             Zb.data_ptr(), Gb.data_ptr(), x2.data_ptr(), beta.data_ptr(), var_b.data_ptr(),
             z.data_ptr(), rchi.data_ptr(), r.data_ptr(), scal.data_ptr(), sc["rec"].data_ptr(),
             sc["work"].data_ptr(), sc["counter"].data_ptr(), nb, C, n, phases,
-            int(path == "grid"), torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gibbs_sweep_block_mvn")
     gibbs_sweep_block_mvn.launches += 1
 

@@ -736,59 +736,73 @@ def test_gibbs_mvn_prepass_matches_linalg(dev, m):
     assert torch.equal(bo, beta) and torch.equal(xx, x2) and torch.equal(chi, rchi)
 
 
-def _gibbs_crossover(kind: str) -> int:
-    """The largest n whose serial pass the plan puts on the cluster path."""
-    lo, hi = 32, 1 << 16
-    assert kernels.gibbs_plan(kind, lo, 128)["path"] == "cluster"
-    assert kernels.gibbs_plan(kind, hi, 128)["path"] != "cluster"
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if kernels.gibbs_plan(kind, mid, 128)["path"] == "cluster" else (lo, mid)
-    return lo
+def _gibbs_start(dev, n, m, seed=2):
+    """A sweep's problem of n samples and m markers, its draws and a fixed
+    start [β, var_b, r]."""
+    Zb, Gb, x2, r, scal = _gibbs_problem(dev, m=m, n=n, seed=n)
+    nb, C, _ = Zb.shape
+    start = [torch.full((nb, C), 0.01, device=dev),
+             torch.full((nb, C), float(scal[4]), device=dev), r]
+    return (Zb, Gb, x2, scal), _gibbs_draws(dev, (nb, C), seed), start
+
+
+def _gibbs_sweep_from(kind, fn, problem, draws, start):
+    """One sweep of ``fn`` (the kernel or its plain version) from a copy of
+    ``start``: (δ or None, [β, var_b, r])."""
+    Zb, Gb, x2, scal = problem
+    rn, ru, rca, rci = draws
+    st = [t.clone() for t in start]
+    if kind == "marker":
+        return fn(Zb, Gb, x2, st[0], st[1], rn, ru, rca, rci, st[2], scal, "B"), st
+    fn(Zb, Gb, x2, st[0], st[1], rn, rca, st[2], scal)
+    return None, st
+
+
+_GIBBS_FNS = {"marker": (kernels.gibbs_sweep_marker, kernels.gibbs_sweep_marker_plain),
+              "mvn": (kernels.gibbs_sweep_block_mvn, kernels.gibbs_sweep_block_mvn_plain)}
 
 
 @pytest.mark.parametrize("kind", ["marker", "mvn"])
 def test_gibbs_cluster_path_matches_grid_path(dev, kind):
-    """At the crossover n (the largest n on the cluster path; one more
-    sample takes the grid path), one sweep on the cluster path, the same
-    sweep forced onto the cooperative grid path, and one at n + 1, each
-    against the plain version from the same state and draws: δ identical,
-    values within rtol 1e-4 (G1) / 1e-3 (G2) as the other sweep tests; the
-    two paths within the same bounds of each other."""
-    n_c = _gibbs_crossover(kind)
-    assert kernels.gibbs_plan(kind, n_c, 128)["P"] > 8  # a non-portable cluster
+    """Both paths of the serial pass at the crossover: one sweep at n_c
+    (the largest n on the cluster path, a non-portable cluster of more
+    than 8 CTAs) and one at n_c + 1 (the cooperative grid), each against
+    the plain version from the same state and draws: δ identical, values
+    within rtol 1e-4 (G1) / 1e-3 (G2) as the other sweep tests."""
+    n_c = kernels.gibbs_cluster_limit(kind)
+    assert kernels.gibbs_plan(kind, n_c, 128)["path"] == "cluster"
+    assert kernels.gibbs_plan(kind, n_c, 128)["P"] > 8
     assert kernels.gibbs_plan(kind, n_c + 1, 128)["path"] == "grid"
-    assert kernels.gibbs_plan(kind, n_c, 128, path="grid")["path"] == "grid"
     rtol = 1e-4 if kind == "marker" else 1e-3
-    close = lambda got, want: torch.testing.assert_close(
-        got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
+    kernel, plain = _GIBBS_FNS[kind]
     for n in (n_c, n_c + 1):
-        Zb, Gb, x2, r, scal = _gibbs_problem(dev, m=640, n=n, seed=n)
-        nb, C, _ = Zb.shape
-        rn, ru, rca, rci = _gibbs_draws(dev, (nb, C), 2)
-        start = [torch.full((nb, C), 0.01, device=dev),
-                 torch.full((nb, C), float(scal[4]), device=dev), r]
-        out = {}
-        for name, fn, path in (("auto", kernels.gibbs_sweep_marker, "auto"),
-                               ("grid", kernels.gibbs_sweep_marker, "grid"),
-                               ("plain", kernels.gibbs_sweep_marker_plain, None)):
-            st = [t.clone() for t in start]
-            kw = {} if path is None else {"path": path}
-            if kind == "marker":
-                d = fn(Zb, Gb, x2, st[0], st[1], rn, ru, rca, rci, st[2], scal, "B", **kw)
-            else:
-                fn = {"auto": kernels.gibbs_sweep_block_mvn, "grid": kernels.gibbs_sweep_block_mvn,
-                      "plain": kernels.gibbs_sweep_block_mvn_plain}[name]
-                d = fn(Zb, Gb, x2, st[0], st[1], rn, rca, st[2], scal, **kw)
-            out[name] = (d, st)
+        prob = _gibbs_start(dev, n, 640)
+        dk, got = _gibbs_sweep_from(kind, kernel, *prob)
+        dp, want = _gibbs_sweep_from(kind, plain, *prob)
         torch.cuda.synchronize()
-        for name in ("auto", "grid"):
-            if kind == "marker":
-                assert torch.equal(out[name][0], out["plain"][0]), f"n = {n} {name}: δ differ"
-            for got, want in zip(out[name][1], out["plain"][1]):
-                close(got, want)
-        for got, want in zip(out["auto"][1], out["grid"][1]):
-            close(got, want)
+        if kind == "marker":
+            assert torch.equal(dk, dp), f"n = {n}: δ differ"
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("kind", ["marker", "mvn"])
+def test_gibbs_sweeps_repeat_bit_for_bit(dev, kind):
+    """Every CTA sums the partials in one fixed order, so a sweep is a
+    function of its inputs: 100 sweeps from the same state and draws on
+    each path (the cluster at n_c, the grid at n_c + 1; 50 blocks) give
+    the same δ, β, var_b and r to the last bit. A race between a block's
+    exchange, its copies of the next block's rows and record and the
+    reads of them would show here."""
+    n_c = kernels.gibbs_cluster_limit(kind)
+    kernel = _GIBBS_FNS[kind][0]
+    for n in (n_c, n_c + 1):
+        prob = _gibbs_start(dev, n, 6400)
+        d0, first = _gibbs_sweep_from(kind, kernel, *prob)
+        for i in range(100):
+            d, st = _gibbs_sweep_from(kind, kernel, *prob)
+            same = all(torch.equal(a, b) for a, b in zip(st, first))
+            assert same and (d0 is None or torch.equal(d, d0)), f"n = {n}: repeat {i} differs"
 
 
 def test_gibbs_wrapper_raises_when_the_build_fails(dev, monkeypatch):
