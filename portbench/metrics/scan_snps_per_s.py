@@ -1,0 +1,6 @@
+"""scan_snps_per_s: SNP x trait tests completed in the window / the
+window's seconds (the window ends when its last step ends)."""
+
+
+def read(run):
+    return run.tests_per_s()
