@@ -2173,9 +2173,8 @@ class _Held:
     """A kernel wrapper that, while a path runs, keeps a copy of the
     arguments and results of its first ``per_shape`` launches at each
     shape and mode (at most HELD_PER_KERNEL shapes), for hold_launches().
-    Its launch count is the
-    wrapper's own: the wrapper counts through its module's name, which
-    then names this object."""
+    Its launch count is the wrapper's own: the wrapper counts under its
+    name in utils.trace's table, which launch_counts() reads."""
 
     def __init__(self, fn, kept: list, per_shape: int = 1):
         import inspect
@@ -2183,11 +2182,10 @@ class _Held:
         self.fn, self.kept, self.__name__ = fn, kept, fn.__name__
         self.sig, self.keys, self.per_shape = inspect.signature(fn), {}, per_shape
 
-    launches = property(lambda self: self.fn.launches,
-                        lambda self, v: setattr(self.fn, "launches", v))
-
     def __call__(self, *a, **k):
         import torch
+
+        from janusx_tpu_torch.ops import kernels
 
         args = self.sig.bind(*a, **k)
         args.apply_defaults()
@@ -2197,9 +2195,9 @@ class _Held:
                 or sum(self.keys.values()) >= HELD_PER_KERNEL * self.per_shape):
             return self.fn(*a, **k)
         copy = {n: v.clone() if torch.is_tensor(v) else v for n, v in args.arguments.items()}
-        before = self.fn.launches
+        before = kernels.launch_counts()[self.__name__]
         out = self.fn(*a, **k)
-        if self.fn.launches > before:
+        if kernels.launch_counts()[self.__name__] > before:
             self.keys[key] = self.keys.get(key, 0) + 1
             after = {n: args.arguments[n].clone() for n in ("beta", "var_b", "r")
                      if n in args.arguments}
@@ -3135,7 +3133,7 @@ def rescan_default(rows5, cpu, dev) -> float:
         res[prec], _ = lmm_scan(cpu["pg"], cpu["basis"], cpu["y"], device=dev)
         torch.cuda.synchronize()
         walls[prec] = time.monotonic() - t0  # the second "highest" scan is warm
-        require(kernels.grid_neg_reml_lattice.launches > 0, f"{prec} rescan: K2 never launched")
+        require(kernels.launch_counts()["grid_neg_reml_lattice"] > 0, f"{prec} rescan: K2 never launched")
     os.environ.pop("JX_TPU_GRID_MXU_PREC")
     require(list(res["default"].sites.snp) == [r[2] for r in rows5],
             "default rescan: SNP rows differ from phase 5's TSV")

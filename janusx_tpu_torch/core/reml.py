@@ -29,6 +29,7 @@ from janusx_tpu_torch import config
 from janusx_tpu_torch.core.spectral import SpectralBasis
 from janusx_tpu_torch.ops.brent import brent_minimize_batched
 from janusx_tpu_torch.ops.kernels import neg_reml_closed_form
+from janusx_tpu_torch.utils import trace
 
 _BAD = 1e8  # reference sentinel: invalid loglik = -1e8
 f32, f64 = torch.float32, torch.float64
@@ -74,7 +75,8 @@ def make_rotated(basis: SpectralBasis, y: np.ndarray, X_cov: np.ndarray | None,
     PXX = (Xr[:, :, None] * Xr[:, None, :]).reshape(n, -1)
     PXy = Xr * yr[:, None]
     Pyy = yr * yr
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=f64, device=dev)
+    t = lambda a: trace.uploaded(torch.as_tensor(np.ascontiguousarray(a), dtype=f64,
+                                                 device=dev))
     return RotatedData(s=t(basis.S), Xr=t(Xr), yr=t(yr), PXX=t(PXX),
                        PXy=t(PXy), Pyy=t(Pyy))
 
@@ -413,6 +415,7 @@ class NullFit(NamedTuple):
     ml: float  # ML loglik evaluated at the REML-optimal λ
 
 
+@trace.spanned("null_brent")
 def fit_null_reml(
     rot: RotatedData,
     low: float = config.LOG10_LAMBDA_LOW,

@@ -30,6 +30,7 @@ from janusx_tpu_torch.models.scan_common import ScanResult
 from janusx_tpu_torch.models.superblocks import scan_resident, stream
 from janusx_tpu_torch.ops.decode import decode_centered
 from janusx_tpu_torch.parallel.mesh import home_device
+from janusx_tpu_torch.utils import trace
 
 _DBL_MIN = np.finfo(np.float64).tiny
 f32 = torch.float32
@@ -61,7 +62,8 @@ def design_matrix(n: int, covariates: np.ndarray | None) -> np.ndarray:
 def _lm_grams(pk, mn, X, C, MY, n: int):
     """f32 grams of pre-blocked (nblk, B, nb) packed rows on their device:
     g'M_X Y (nblk*B, T) and g'M_X g (nblk*B,), returned as f64."""
-    X32, C32, MY32 = (torch.as_tensor(a, dtype=f32, device=pk.device) for a in (X, C, MY))
+    X32, C32, MY32 = (trace.uploaded(torch.as_tensor(a, dtype=f32, device=pk.device))
+                      for a in (X, C, MY))
     gMY, gMg = [], []
     for i in range(pk.shape[0]):
         G = decode_centered(pk[i], mn[i], f32)[:, :n]

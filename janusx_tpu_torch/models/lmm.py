@@ -21,6 +21,10 @@ With a device mesh (parallel.mesh) the grid method shards every resident
 superblock: each shard launches K1 and K2 on its slice on its own device
 (janusx_tpu's ``shard_map`` scans, lmm.py:241, 633); brent runs on one
 device, as the reference's does.
+
+Spans (utils.trace): ``fit_null``; ``rotate_y``, a trait's rotated state,
+made once; ``lmm_scan``, the route; ``results``, a chunk's host epilogue.
+models.superblocks opens the chunks' own.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from janusx_tpu_torch.models.superblocks import replicas, scan_resident, stream
 from janusx_tpu_torch.ops import kernels
 from janusx_tpu_torch.ops.brent import brent_minimize_batched
 from janusx_tpu_torch.parallel.mesh import home_device
-from janusx_tpu_torch.utils import devcache
+from janusx_tpu_torch.utils import devcache, trace
 
 f32, f64 = torch.float32, torch.float64
 
@@ -166,9 +170,10 @@ def _upload(pg, basis: SpectralBasis, block: int, dev):
     means (nblk, block), U f32 and K1's bf16 pieces of U."""
     m = pg.m
     nblk = -(-m // block)
-    pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
-    mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
-    return (pk, mn) + _basis_operands(basis, dev)
+    with trace.span("upload"):
+        pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
+        mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
+        return (pk, mn) + _basis_operands(basis, dev)
 
 
 def _basis_operands(basis: SpectralBasis, dev):
@@ -213,22 +218,23 @@ def _grid_scan(pg, basis: SpectralBasis, states, nulls, block: int, lmm2: bool,
     def chunk(pg):
         m = pg.m
         out, lgs, ml = scan_resident(pg, block, dev, mesh, compute)
-        out = out.astype(np.float64)
-        if lmm2:
-            lbd = 10.0 ** lgs.astype(np.float64)
-        res = []
-        for t in range(T):
-            beta_t, se_t, pwald = out[0, t], out[1, t], out[2, t]
-            # device f32 erfc is exact to ~1e-7 relative; lanes at/below the
-            # f32 underflow floor get the exact host value
-            tiny = pwald <= _PWALD_F32_FLOOR
-            if tiny.any():
-                pwald = pwald.copy()
-                pwald[tiny] = jstats.pwald_from_beta_se(beta_t[tiny], se_t[tiny])
-            # degenerate lanes are already sanitized on the device
-            res.append(_result(pg, nulls[t], beta_t, se_t, pwald, np.ones(m), lmm2,
-                               lbd[t] if lmm2 else None, ml[t] if lmm2 else None))
-        return res
+        with trace.span("results"):
+            out = out.astype(np.float64)
+            if lmm2:
+                lbd = 10.0 ** lgs.astype(np.float64)
+            res = []
+            for t in range(T):
+                beta_t, se_t, pwald = out[0, t], out[1, t], out[2, t]
+                # device f32 erfc is exact to ~1e-7 relative; lanes at/below
+                # the f32 underflow floor get the exact host value
+                tiny = pwald <= _PWALD_F32_FLOOR
+                if tiny.any():
+                    pwald = pwald.copy()
+                    pwald[tiny] = jstats.pwald_from_beta_se(beta_t[tiny], se_t[tiny])
+                # degenerate lanes are already sanitized on the device
+                res.append(_result(pg, nulls[t], beta_t, se_t, pwald, np.ones(m), lmm2,
+                                   lbd[t] if lmm2 else None, ml[t] if lmm2 else None))
+            return res
 
     grid_points = shs[0].grid_lg.shape[0]
     return stream(pg, lattice_superblock(n, grid_points, block, superblock, T),
@@ -286,9 +292,10 @@ def _scan_state(basis: SpectralBasis, y: np.ndarray, covariates,
     hit = _state_cache.get(key)
     if hit is not None:
         return hit
-    rot = make_rotated(basis, y, covariates, device=device)
-    grid_lg = make_grid(grid_points, device)
-    sh = grid_shared(rot, grid_lg)
+    with trace.span("rotate_y"):
+        rot = make_rotated(basis, y, covariates, device=device)
+        grid_lg = make_grid(grid_points, device)
+        sh = grid_shared(rot, grid_lg)
     state = (rot, grid_lg, sh)
     try:
         # id(basis.U) is unique only while basis.U lives: evict on GC
@@ -301,6 +308,7 @@ def _scan_state(basis: SpectralBasis, y: np.ndarray, covariates,
     return state
 
 
+@trace.spanned("fit_null")
 def fit_null(basis: SpectralBasis, y: np.ndarray, covariates=None,
              grid_points: int | None = None, device=None) -> NullFit:
     """Null REML fit of one trait on the device, sharing lmm_scan's
@@ -313,6 +321,7 @@ def fit_null(basis: SpectralBasis, y: np.ndarray, covariates=None,
     return fit_null_reml(rot)
 
 
+@trace.spanned("lmm_scan")
 def lmm_scan(
     pg: PackedGenotypes,
     basis: SpectralBasis,
@@ -352,6 +361,7 @@ def lmm_scan(
                       mesh)[0], null
 
 
+@trace.spanned("lmm_scan")
 def lmm_scan_multi(
     pg: PackedGenotypes,
     basis: SpectralBasis,

@@ -44,7 +44,7 @@ from janusx_tpu_torch.models.scan_common import ScanResult, finalize_invalid, it
 from janusx_tpu_torch.models.superblocks import scan_resident, stream
 from janusx_tpu_torch.ops.decode import decode_centered, decode_standardized
 from janusx_tpu_torch.parallel.mesh import home_device
-from janusx_tpu_torch.utils import devcache
+from janusx_tpu_torch.utils import devcache, trace
 
 DEFAULT_SPARSE_CUTOFF = 0.05
 NULL_CHI2_CUTOFF = 5.0  # fastGWA-style null-marker filter
@@ -166,6 +166,7 @@ class SparseNullFit:
     factor: _SpectralFactor  # V_lambda^-1 apply (block-spectral)
 
 
+@trace.spanned("sparse_null")
 def fit_sparse_null(
     Ks: scipy.sparse.spmatrix,
     ytilde: np.ndarray,
@@ -189,7 +190,8 @@ def fit_sparse_null(
     )
 
     if bs is None:
-        bs = BlockSpectralK.from_sparse(Ks)
+        with trace.span("block_spectral"):
+            bs = BlockSpectralK.from_sparse(Ks)
     lbd, sigma2, loglik = profiled_null_fit(
         bs, ytilde, n_eff, low, high, tol=tol, max_iter=max_iter
     )
@@ -205,6 +207,7 @@ def _coerce_sparse(K, cutoff: float) -> scipy.sparse.csc_matrix:
     return sparsify_grm(K, cutoff)
 
 
+@trace.spanned("gamma")
 def _calibrate_gamma(pg, proj, null: SparseNullFit, a, seed: int):
     """GRAMMAR-gamma calibration on sampled null markers, batched: one
     take_snps + dense proj/solve for the whole sample (the reference's
@@ -229,6 +232,7 @@ def _calibrate_gamma(pg, proj, null: SparseNullFit, a, seed: int):
     return float(np.mean(gammas)), int(mask.sum())
 
 
+@trace.spanned("splmm_grammar_scan")
 def splmm_grammar_scan(
     pg: PackedGenotypes,
     K,
@@ -283,13 +287,14 @@ def splmm_grammar_scan(
 
     def chunk(sub):
         gA, gMg = scan_resident(sub, block, dev, mesh, compute)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            beta = gA / (gamma_eff * gMg)
-            se = 1.0 / np.sqrt(gamma_eff * gMg)
-        pwald = jstats.pwald_from_beta_se(beta, se)
-        beta, se, pwald, _ = finalize_invalid(beta, se, pwald, gMg)
-        return [ScanResult(sites=sub.sites, af=sub.af, miss=sub.miss, beta=beta,
-                           se=se, pwald=pwald, extras=info)]
+        with trace.span("host_p"):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                beta = gA / (gamma_eff * gMg)
+                se = 1.0 / np.sqrt(gamma_eff * gMg)
+            pwald = jstats.pwald_from_beta_se(beta, se)
+            beta, se, pwald, _ = finalize_invalid(beta, se, pwald, gMg)
+            return [ScanResult(sites=sub.sites, af=sub.af, miss=sub.miss, beta=beta,
+                               se=se, pwald=pwald, extras=info)]
 
     return stream(pg, superblock, block, chunk, mesh)[0], info
 

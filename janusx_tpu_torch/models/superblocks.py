@@ -13,6 +13,12 @@ mesh size and every shard takes an equal slice of every block
 each shard's uploads and launches on its own device, synchronizes only
 after the last shard is issued (so distinct cards overlap), and gathers
 the per-SNP outputs back in SNP order.
+
+Spans (utils.trace): ``feed``, the wait for the next chunk on the host;
+``superblock``, one resident chunk, and inside it ``upload`` (the device
+cache's lookups and, on a miss, the pad and the copy), ``kernels``
+(``compute``) and ``to_host`` (the copy back, which waits for the
+kernels); ``results``, the concatenation of the chunks' results.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ import torch
 
 from janusx_tpu_torch.models.scan_common import ScanResult
 from janusx_tpu_torch.parallel.mesh import on_device
-from janusx_tpu_torch.utils import devcache
+from janusx_tpu_torch.utils import devcache, trace
 from janusx_tpu_torch.utils.prefetch import prefetch_one_ahead
+
+_END = object()
 
 
 def stream(pg, superblock: int, block: int, scan_chunk, mesh=None) -> list[ScanResult]:
@@ -38,13 +46,21 @@ def stream(pg, superblock: int, block: int, scan_chunk, mesh=None) -> list[ScanR
     m = pg.m
     if m <= superblock:
         if not hasattr(pg, "packed"):  # lazy input small enough: materialize
-            pg = pg.take_snps(np.arange(m))
+            with trace.span("feed"):
+                pg = pg.take_snps(np.arange(m))
         return scan_chunk(pg)
     sb = max((superblock // block) * block, block)
     spans = [(s0, min(s0 + sb, m)) for s0 in range(0, m, sb)]
-    parts = [scan_chunk(sub) for sub in prefetch_one_ahead(
-        spans, lambda se: pg.take_snps(np.arange(se[0], se[1])))]
-    return [ScanResult.concat([p[t] for p in parts]) for t in range(len(parts[0]))]
+    chunks = prefetch_one_ahead(spans, lambda se: pg.take_snps(np.arange(se[0], se[1])))
+    parts = []
+    while True:
+        with trace.span("feed"):
+            sub = next(chunks, _END)
+        if sub is _END:
+            break
+        parts.append(scan_chunk(sub))
+    with trace.span("results"):
+        return [ScanResult.concat([p[t] for p in parts]) for t in range(len(parts[0]))]
 
 
 def shard_block(block: int, mesh) -> int:
@@ -61,6 +77,7 @@ def replicas(tree, mesh) -> list:
     return [tree] if mesh is None else devcache.replicate_tree(tree, mesh)
 
 
+@trace.spanned("superblock")
 def scan_resident(pg, block: int, dev, mesh, compute, mean: bool = True) -> list:
     """One resident chunk through ``compute(i, pk, mn, device)``, which
     returns device tensors (or None) whose last axis runs over the rows of
@@ -73,26 +90,33 @@ def scan_resident(pg, block: int, dev, mesh, compute, mean: bool = True) -> list
     block = shard_block(block, mesh)
     shape = (-(-m // block), block)
     if mesh is None:
-        pk = devcache.device_packed_blocks(pg, shape, dev)
-        mn = devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, dev) if mean else None
-        return [None if x is None else x.cpu().numpy()[..., :m]
-                for x in compute(0, pk, mn, dev)]
-    pks = devcache.device_packed_blocks(pg, shape, mesh=mesh, shard_axis=1)
-    mns = (devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, mesh=mesh,
-                                     shard_axis=1) if mean else [None] * mesh.size)
+        with trace.span("upload"):
+            pk = devcache.device_packed_blocks(pg, shape, dev)
+            mn = (devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, dev)
+                  if mean else None)
+        with trace.span("kernels"):
+            outs = compute(0, pk, mn, dev)
+        with trace.span("to_host"):
+            return [None if x is None else x.cpu().numpy()[..., :m] for x in outs]
+    with trace.span("upload"):
+        pks = devcache.device_packed_blocks(pg, shape, mesh=mesh, shard_axis=1)
+        mns = (devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, mesh=mesh,
+                                         shard_axis=1) if mean else [None] * mesh.size)
     outs = []
-    for i, d in enumerate(mesh.device_list):
-        with on_device(d):
-            outs.append(compute(i, pks[i], mns[i], d))
-    gathered = []
-    for xs in zip(*outs):
-        if xs[0] is None:
-            gathered.append(None)
-            continue
-        xs = [x.cpu().numpy() for x in xs]
-        lead = xs[0].shape[:-1]
-        # (..., nblk, w) per shard -> (..., nblk, D, w): block by block,
-        # shard by shard, which is SNP order
-        full = np.stack([x.reshape(lead + (shape[0], -1)) for x in xs], axis=-2)
-        gathered.append(full.reshape(lead + (-1,))[..., :m])
-    return gathered
+    with trace.span("kernels"):
+        for i, d in enumerate(mesh.device_list):
+            with on_device(d):
+                outs.append(compute(i, pks[i], mns[i], d))
+    with trace.span("to_host"):
+        gathered = []
+        for xs in zip(*outs):
+            if xs[0] is None:
+                gathered.append(None)
+                continue
+            xs = [x.cpu().numpy() for x in xs]
+            lead = xs[0].shape[:-1]
+            # (..., nblk, w) per shard -> (..., nblk, D, w): block by block,
+            # shard by shard, which is SNP order
+            full = np.stack([x.reshape(lead + (shape[0], -1)) for x in xs], axis=-2)
+            gathered.append(full.reshape(lead + (-1,))[..., :m])
+        return gathered

@@ -27,7 +27,8 @@ All are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
 bound with ``ctypes``. A wrapper takes its plain-PyTorch version only for
 tensors on the CPU (for G1 and G2 the plain mirror of the kernel's
 schedule); for a CUDA tensor it launches the kernel or raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches as ``launch.<wrapper>`` in
+utils.trace's table (``launch_counts``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 
 from janusx_tpu_torch import config
 from janusx_tpu_torch.ops.decode import decode_centered
+from janusx_tpu_torch.utils import trace
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
@@ -253,11 +255,8 @@ def decode_rotate(packed: torch.Tensor, mean: torch.Tensor, U: torch.Tensor,
             out.stride(0), int(prec == "high"),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "decode_rotate")
-    decode_rotate.launches += 1
+    trace.count("launch.decode_rotate")
     return out
-
-
-decode_rotate.launches = 0
 
 
 # ------------------------------------------------------- K2 λ-lattice
@@ -439,11 +438,8 @@ def grid_neg_reml_lattice(Gr: torch.Tensor, W: torch.Tensor,
             float(ridge), float(nf - (p + 1)), int(prec == "default"),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "grid_neg_reml_lattice")
-    grid_neg_reml_lattice.launches += 1
+    trace.count("launch.grid_neg_reml_lattice")
     return out[0] if SH.dim() == 2 else out
-
-
-grid_neg_reml_lattice.launches = 0
 
 
 # ------------------------------------------------- G1 / G2 Gibbs sweeps
@@ -715,11 +711,8 @@ def gibbs_sweep_marker(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
             sc["counter"].data_ptr(), nb, C, n, GIBBS_MARKER_METHODS[method], phases,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gibbs_sweep_marker")
-    gibbs_sweep_marker.launches += 1
+    trace.count("launch.gibbs_sweep_marker")
     return delta
-
-
-gibbs_sweep_marker.launches = 0
 
 
 def gibbs_sweep_block_mvn(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
@@ -743,20 +736,18 @@ def gibbs_sweep_block_mvn(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
             sc["work"].data_ptr(), sc["counter"].data_ptr(), nb, C, n, phases,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gibbs_sweep_block_mvn")
-    gibbs_sweep_block_mvn.launches += 1
+    trace.count("launch.gibbs_sweep_block_mvn")
 
 
-gibbs_sweep_block_mvn.launches = 0
+_WRAPPERS = ("decode_rotate", "grid_neg_reml_lattice", "gibbs_sweep_marker",
+             "gibbs_sweep_block_mvn")
 
 
 def reset_launches() -> None:
-    decode_rotate.launches = 0
-    grid_neg_reml_lattice.launches = 0
-    gibbs_sweep_marker.launches = 0
-    gibbs_sweep_block_mvn.launches = 0
+    trace.reset("launch.")
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count, by wrapper name."""
-    return {f.__name__: f.launches for f in (decode_rotate, grid_neg_reml_lattice,
-                                             gibbs_sweep_marker, gibbs_sweep_block_mvn)}
+    table = trace.counts()
+    return {name: table.get("launch." + name, 0) for name in _WRAPPERS}

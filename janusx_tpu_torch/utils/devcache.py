@@ -7,6 +7,8 @@ a weakref finalizer so entries die with their host array; an id() value
 can only be reused after the original array is collected, by which time
 the finalizer has evicted the stale entry.
 
+Every upload (on a miss) adds its bytes to utils.trace's ``h2d_bytes``.
+
 With a ``mesh`` (parallel.mesh.Mesh) the SNP-axis uploads are sharded: the
 padded host array is made once, split along ``shard_axis`` into one equal
 slice per shard, and cached as the list of per-shard tensors under the
@@ -20,6 +22,8 @@ import weakref
 
 import numpy as np
 import torch
+
+from janusx_tpu_torch.utils import trace
 
 _cache: dict = {}
 
@@ -39,7 +43,8 @@ def to_device(arr: np.ndarray, dtype: torch.dtype, device: torch.device) -> torc
     hit = _cache.get(key)
     if hit is not None:
         return hit
-    dev = torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype, device=device)
+    dev = trace.uploaded(torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
+                                         device=device))
     return _remember(arr, key, dev)
 
 
@@ -67,7 +72,7 @@ def _sharded(host: np.ndarray, mesh, shard_axis: int, dtype=None) -> list:
                                             axis=shard_axis))
         t = torch.as_tensor(part)
         out.append((t if dtype is None else t.to(dtype)).to(dev))
-    return out
+    return trace.uploaded(out)
 
 
 def _place_key(device, mesh):
@@ -95,7 +100,7 @@ def device_packed_blocks(pg, shape: tuple, device: torch.device | None = None,
         pad = np.full((m_pad - padded.shape[0], padded.shape[1]), 0xFF, np.uint8)
         padded = np.concatenate([padded, pad])
     host = padded.reshape(shape + (padded.shape[1],))
-    dev = (torch.as_tensor(host, device=device) if mesh is None
+    dev = (trace.uploaded(torch.as_tensor(host, device=device)) if mesh is None
            else _sharded(host, mesh, shard_axis))
     return _remember(src, key, dev)
 
@@ -118,7 +123,7 @@ def to_device_blocks(arr: np.ndarray, shape: tuple, fill, dtype: torch.dtype,
         pad = np.full((m_pad - host.shape[0],) + host.shape[1:], fill, host.dtype)
         host = np.concatenate([host, pad])
     host = host.reshape(shape)
-    dev = (torch.as_tensor(host).to(dtype).to(device) if mesh is None
+    dev = (trace.uploaded(torch.as_tensor(host).to(dtype).to(device)) if mesh is None
            else _sharded(host, mesh, shard_axis, dtype))
     return _remember(arr, key, dev)
 

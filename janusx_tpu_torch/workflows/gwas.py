@@ -41,6 +41,7 @@ from janusx_tpu_torch.models import fvlmm as fvlmm_mod
 from janusx_tpu_torch.models import lm as lm_mod
 from janusx_tpu_torch.models import lmm as lmm_mod
 from janusx_tpu_torch.models.scan_common import ScanResult, analysis_sample_index
+from janusx_tpu_torch.utils import trace
 from janusx_tpu_torch.utils.progress import stage
 
 log = logging.getLogger("janusx_tpu_torch.gwas")
@@ -168,8 +169,10 @@ def _range_mask(sites, ranges) -> np.ndarray:
 
 @contextlib.contextmanager
 def _timed(stages: dict, key: str, label: str):
+    """The stage ``label`` logged and its seconds added to ``stages[key]``
+    (the run summary's); a profiled run shows it as the span ``key``."""
     t0 = time.monotonic()
-    with stage(label, log):
+    with stage(label, log), trace.span(key):
         yield
     stages[key] = stages.get(key, 0.0) + time.monotonic() - t0
 

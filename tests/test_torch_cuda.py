@@ -85,11 +85,11 @@ def test_decode_rotate_kernel_matches_plain(dev, prec, M, n, N, align16):
     n = 1,410 the f32 plain version is itself 3.0e-4 from the exact
     product (H100), beyond the bound (see the f64 test below)."""
     pk, mn, U = _operands(dev, M, n, N, align16, n ** -0.5)
-    before = kernels.decode_rotate.launches
+    before = kernels.launch_counts()["decode_rotate"]
     got = kernels.decode_rotate(pk, mn, U, prec=prec)
     want = _PLAIN[prec](pk, mn, U)
     torch.cuda.synchronize()
-    assert kernels.decode_rotate.launches == before + 1
+    assert kernels.launch_counts()["decode_rotate"] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     if prec == "high":
         highest = kernels.decode_rotate(pk, mn, U)
@@ -215,9 +215,9 @@ def test_grid_lattice_trait_axis_matches_plain(dev, prec, p, T, B, G, n):
     rng = np.random.default_rng(p * 1000 + n + 17 * T)
     Gr = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32, device=dev)
     args = _lattice_args(rng, Gr, G, p, dev, T=T)
-    before = kernels.grid_neg_reml_lattice.launches
+    before = kernels.launch_counts()["grid_neg_reml_lattice"]
     got = _check_lattice(args, prec)
-    assert kernels.grid_neg_reml_lattice.launches == before + 1
+    assert kernels.launch_counts()["grid_neg_reml_lattice"] == before + 1
     assert got.shape == (T, B, G)
 
 
@@ -276,8 +276,39 @@ def test_lmm_scan_splits_w_once_per_scan(dev, monkeypatch):
     monkeypatch.setattr(kernels, "split_w", lambda W: calls.append(W.shape) or split(W))
     kernels.reset_launches()
     lmm.lmm_scan_multi(pg, basis, Y, cov, block=512, superblock=1024, device=dev)
-    assert kernels.grid_neg_reml_lattice.launches == 3
+    assert kernels.launch_counts()["grid_neg_reml_lattice"] == 3
     assert len(calls) == 1
+
+
+def test_lmm_scan_counts_its_uploads(dev):
+    """utils.trace's h2d_bytes over lmm_scan. Two streamed superblocks, the
+    trait's rotated data and U already on the card: exactly the padded
+    packed rows and the f32 means of each superblock, and again on a second
+    call (each streamed superblock is a new host array, so the device cache
+    misses). One resident superblock: the panel and its means once, and 0
+    more on a second call with the same input."""
+    from janusx_tpu_torch.models import lmm
+    from janusx_tpu_torch.utils import trace
+
+    pg, basis, Y, _ = _scan_problem(3000, 300, 1)
+    y = Y[:, 0]
+    h2d = lambda: trace.counts().get(trace.H2D, 0)
+    row = decode.pad_packed_cols(pg.packed[:1], 4).shape[1] + 4  # packed bytes + f32 mean
+    sb = lmm.lattice_superblock(pg.n, 256, 512, 2048)
+    chunks = [min(sb, pg.m - s) for s in range(0, pg.m, sb)]
+    assert len(chunks) == 2
+    streamed = sum(-(-c // 512) * 512 * row for c in chunks)
+    lmm.lmm_scan(pg, basis, y, block=512, superblock=2048, device=dev)
+    for _ in range(2):
+        before = h2d()
+        lmm.lmm_scan(pg, basis, y, block=512, superblock=2048, device=dev)
+        assert h2d() - before == streamed
+    before = h2d()
+    lmm.lmm_scan(pg, basis, y, block=512, device=dev)
+    assert h2d() - before == -(-pg.m // 512) * 512 * row
+    before = h2d()
+    lmm.lmm_scan(pg, basis, y, block=512, device=dev)
+    assert h2d() == before
 
 
 def test_lmm_scan_multi_on_card_matches_single_trait_scans(dev):
@@ -290,8 +321,8 @@ def test_lmm_scan_multi_on_card_matches_single_trait_scans(dev):
     pg, basis, Y, cov = _scan_problem(3000, 300, T)
     kernels.reset_launches()
     res, nulls = lmm.lmm_scan_multi(pg, basis, Y, cov, block=512, device=dev)
-    assert kernels.decode_rotate.launches == 1
-    assert kernels.grid_neg_reml_lattice.launches == 1
+    assert kernels.launch_counts()["decode_rotate"] == 1
+    assert kernels.launch_counts()["grid_neg_reml_lattice"] == 1
     for t in range(T):
         one, null = lmm.lmm_scan(pg, basis, Y[:, t], cov, block=512, device=dev)
         assert null.lbd == nulls[t].lbd
@@ -355,7 +386,7 @@ def test_fastlmm_scan_on_card_matches_cpu(dev, model):
                                       model=model, device=dev)
     supers = -(-pg.m // lattice_superblock(pg.n, 256, 512, 1024))
     assert supers == 3
-    assert kernels.decode_rotate.launches == (supers if model == "add" else 0)
+    assert kernels.launch_counts()["decode_rotate"] == (supers if model == "add" else 0)
     cpu, null_c = fastlmm.fastlmm_scan(pg, lrb, Y[:, 0], cov, block=512, model=model,
                                        device="cpu")
     assert null.lbd == null_c.lbd
@@ -642,8 +673,8 @@ def test_gibbs_sweep_marker_matches_plain(dev, method):
         for got, want in zip(state["kernel"], state["plain"]):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
     assert 0 < int(dk.sum()) < dk.numel()
-    assert kernels.gibbs_sweep_marker.launches == 3
-    assert kernels.gibbs_sweep_block_mvn.launches == 0
+    assert kernels.launch_counts()["gibbs_sweep_marker"] == 3
+    assert kernels.launch_counts()["gibbs_sweep_block_mvn"] == 0
 
 
 def test_gibbs_sweep_block_mvn_matches_plain(dev):
@@ -667,8 +698,8 @@ def test_gibbs_sweep_block_mvn_matches_plain(dev):
         torch.cuda.synchronize()
         for got, want in zip(state["kernel"], state["plain"]):
             torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * float(want.abs().max()))
-    assert kernels.gibbs_sweep_block_mvn.launches == 3
-    assert kernels.gibbs_sweep_marker.launches == 0
+    assert kernels.launch_counts()["gibbs_sweep_block_mvn"] == 3
+    assert kernels.launch_counts()["gibbs_sweep_marker"] == 0
 
 
 @pytest.mark.parametrize("m,n,C", [(300, 97, 128), (40, 1410, 8), (1000, 5000, 128),
@@ -843,7 +874,8 @@ def test_bayes_fit_on_card(dev):
         kernels.reset_launches()
         b1, mu1, tr = bayes_fit(Z, y, method, n_iter=30, burnin=10, seed=4, device=dev,
                                 return_trace=True)
-        assert wrapper.launches == 30 and sum(kernels.launch_counts().values()) == 30
+        counts = kernels.launch_counts()
+        assert counts[wrapper.__name__] == 30 and sum(counts.values()) == 30
         b2, mu2 = bayes_fit(Z, y, method, n_iter=30, burnin=10, seed=4, device=dev)
         assert np.isfinite(b1).all() and np.isfinite(tr).all() and tr.shape == (30, 2)
         np.testing.assert_array_equal(b1, b2)
@@ -1095,12 +1127,14 @@ def test_mesh_two_shards_on_one_card(dev):
     kernels.reset_launches()
     two, _ = lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=512, superblock=2048, mesh=mesh)
     sb = -(-pg.m // 2048)
-    assert kernels.decode_rotate.launches == kernels.grid_neg_reml_lattice.launches == 2 * sb
+    counts = kernels.launch_counts()
+    assert counts["decode_rotate"] == counts["grid_neg_reml_lattice"] == 2 * sb
     _close_sharded(one, two)
     multi1, _ = lmm.lmm_scan_multi(pg, basis, Y, cov, block=512, device=dev)
     kernels.reset_launches()
     multi2, _ = lmm.lmm_scan_multi(pg, basis, Y, cov, block=512, mesh=mesh)
-    assert kernels.decode_rotate.launches == kernels.grid_neg_reml_lattice.launches == 2
+    counts = kernels.launch_counts()
+    assert counts["decode_rotate"] == counts["grid_neg_reml_lattice"] == 2
     for a, b in zip(multi1, multi2):
         _close_sharded(a, b)
 
@@ -1131,7 +1165,7 @@ def test_mesh_over_every_card_matches_one_card(dev):
     one, _ = lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=512, device=dev)
     kernels.reset_launches()
     many, _ = lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=512, mesh=mesh)
-    assert kernels.decode_rotate.launches == mesh.size
+    assert kernels.launch_counts()["decode_rotate"] == mesh.size
     _close_sharded(one, many)
 
 

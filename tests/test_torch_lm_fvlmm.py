@@ -121,7 +121,7 @@ def test_fvlmm_scan_matches_reference_and_numpy(panel, p):  # noqa: F811
     kernels.reset_launches()
     rt, nt = tfv.fvlmm_scan(pt, interop.basis_from_numpy(basis), y, c, block=512,
                             superblock=1024, device="cpu")
-    assert kernels.decode_rotate.launches == 0  # CPU tensors: the plain version
+    assert kernels.launch_counts()["decode_rotate"] == 0  # CPU tensors: the plain version
     assert abs(nt.log10_lbd - nj.log10_lbd) <= 1e-6
     assert rt.extras == {"lambda_null": nt.lbd, "reml_null": nt.reml}
     _close_scan(rt, rj, 1e-5)

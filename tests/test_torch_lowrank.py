@@ -137,7 +137,7 @@ def test_fastlmm_scan_matches_reference(family_panel, bases, model, ncov):
     kernels.reset_launches()
     rt, nt = tfl.fastlmm_scan(pt, lt, y, c, block=256, model=model, lmm2=True,
                               superblock=512, device="cpu")
-    assert kernels.decode_rotate.launches == 0  # CPU tensors: the plain version
+    assert kernels.launch_counts()["decode_rotate"] == 0  # CPU tensors: the plain version
     assert abs(nt.log10_lbd - nj.log10_lbd) <= 1e-6
     assert rt.extras == {"lambda_null": nt.lbd, "ml_null": nt.ml, "rank": lt.k}
     assert rt.m == rj.m == pt.m
