@@ -44,6 +44,8 @@ import scipy.sparse
 import scipy.sparse.csgraph
 import torch
 
+from janusx_tpu_torch.utils import trace
+
 log = logging.getLogger("janusx_tpu_torch.sparse")
 
 
@@ -227,12 +229,13 @@ class BlockSpectralK:
 
     # -- device op (per-SNP scan quadratics) -------------------------------
 
-    def device_quad_fn(self, lbd: float, device):
-        """G (B, n) f32 tensor on ``device`` -> per-row g' (K + lbd I)^-1 g
-        (B,) f32: per size bucket a gather of the bucket's samples, one
-        batched einsum against its f32 eigenvectors and the f32 weights
-        1/(s + lbd) (the reference's jitted twin, sparse_spectral.py:
-        237-269). The bucket operands are uploaded once, here.
+    def device_quad_fn(self, lbd: float, device, dtype=torch.float32):
+        """G (B, n) tensor on ``device`` -> per-row g' (K + lbd I)^-1 g
+        (B,) in ``dtype``: per size bucket a gather of the bucket's
+        samples, one batched einsum against its eigenvectors and the
+        weights 1/(s + lbd), all in ``dtype`` (float32: the reference's
+        jitted twin, sparse_spectral.py:237-269). The bucket operands are
+        uploaded once, here.
 
         Only valid when every component fit the dense spectral budget —
         callers must take the host ``quad`` route when ``sparse_comps``
@@ -243,20 +246,19 @@ class BlockSpectralK:
                 "percolated components on the sparse-LU route — use "
                 ".quad(lbd, B) instead"
             )
-        f32 = torch.float32
         parts = [
-            (
+            trace.uploaded([
                 torch.as_tensor(b.idx, dtype=torch.long, device=device),
-                torch.as_tensor(b.U, dtype=f32, device=device),
-                torch.as_tensor(1.0 / (b.svals + lbd), dtype=f32, device=device),
-            )
+                torch.as_tensor(b.U, dtype=dtype, device=device),
+                torch.as_tensor(1.0 / (b.svals + lbd), dtype=dtype, device=device),
+            ])
             for b in self.buckets
         ]
 
         def quad(G: torch.Tensor) -> torch.Tensor:
             # the zero column n is every pad index's target
-            Gz = torch.nn.functional.pad(G.to(f32), (0, 1))
-            tot = torch.zeros(G.shape[0], dtype=f32, device=G.device)
+            Gz = torch.nn.functional.pad(G.to(dtype), (0, 1))
+            tot = torch.zeros(G.shape[0], dtype=dtype, device=G.device)
             for I, U, w in parts:
                 Gg = Gz[:, I]  # (B, nc, s)
                 rot = torch.einsum("bcs,cst->bct", Gg, U)

@@ -20,7 +20,8 @@ are O(n) with a sparse K); the per-SNP work runs on the device, one
 resident superblock per pass (models.superblocks.stream), its SNP blocks
 looped on the device with one device-to-host copy per superblock. The
 GRAMMAR grams are the LM scan's (models.lm._lm_grams with Ma in place of
-M_X Y); the exact scan's g'V^-1 g is sparse_spectral's device quadratic.
+M_X Y); the exact scan's g'V^-1 g (f32) and the GRAMMAR γ's g~'V^-1 g~
+over the sampled markers (f64) are sparse_spectral's device quadratic.
 The thresholded GRM is built band by band (``build_sparse_grm``): decode
 on the device and ``rows.T @ c`` as ``torch.matmul``, never the dense n².
 
@@ -50,6 +51,7 @@ DEFAULT_SPARSE_CUTOFF = 0.05
 NULL_CHI2_CUTOFF = 5.0  # fastGWA-style null-marker filter
 N_GAMMA_MARKERS = 500
 f32 = torch.float32
+f64 = torch.float64
 
 
 def _rowband_accum(sub, method: int, lo: int, band: int, block: int, dev):
@@ -208,21 +210,40 @@ def _coerce_sparse(K, cutoff: float) -> scipy.sparse.csc_matrix:
 
 
 @trace.spanned("gamma")
-def _calibrate_gamma(pg, proj, null: SparseNullFit, a, seed: int):
-    """GRAMMAR-gamma calibration on sampled null markers, batched: one
-    take_snps + dense proj/solve for the whole sample (the reference's
-    per-marker loop, splmm_approx.rs gamma pass — here a single batched
-    V^-1 apply over all sampled markers)."""
+def _calibrate_gamma(pg, X, C, null: SparseNullFit, a, seed: int, dev):
+    """GRAMMAR-gamma calibration on sampled null markers, batched over the
+    sample in f64 (the reference's per-marker loop, splmm_approx.rs gamma
+    pass). γ needs per marker g~'g~, g~'a and the quadratic g~'V^-1 g~.
+    With every kinship component on the spectral route they are formed on
+    ``dev``: the sample's packed rows decoded there, projected, and the
+    quadratic taken by the bucketed device quadratic (device_quad_fn), one
+    copy of the three (k,) vectors back. A percolated kinship keeps the
+    host route: host decode and projection, V^-1 G~ by the block-spectral
+    and sparse-LU solve."""
     rng = np.random.default_rng(seed)
     m = pg.m
     n_samp = min(N_GAMMA_MARKERS, m)
     samp = np.sort(rng.choice(m, size=n_samp, replace=False))
-    G = pg.take_snps(samp).centered()  # (k, n)
-    Gt = proj(G.T).T  # (k, n)
-    gg = np.einsum("kn,kn->k", Gt, Gt)
-    VG = null.factor.solve(Gt.T)  # (n, k)
-    gPg = np.einsum("kn,nk->k", Gt, VG) / null.sigma2
-    ga = Gt @ a
+    sub = pg.take_snps(samp)
+    bs = null.factor.bs
+    if bs.sparse_comps:
+        trace.count("gamma.host")
+        G = sub.centered()  # (k, n)
+        Gt = (G.T - X @ (C @ (X.T @ G.T))).T  # (k, n)
+        gg = np.einsum("kn,kn->k", Gt, Gt)
+        VG = null.factor.solve(Gt.T)  # (n, k)
+        gPg = np.einsum("kn,nk->k", Gt, VG) / null.sigma2
+        ga = Gt @ a
+    else:
+        trace.count("gamma.card")
+        pk = trace.uploaded(torch.as_tensor(sub.packed, device=dev))
+        mn, Xd, Cd, ad = trace.uploaded(
+            [torch.as_tensor(v, dtype=f64, device=dev) for v in (sub.mean, X, C, a)])
+        G = decode_centered(pk, mn, f64)[:, :sub.n]  # (k, n)
+        Gt = G - ((G @ Xd) @ Cd.T) @ Xd.T
+        quad = bs.device_quad_fn(null.lbd, dev, dtype=f64)
+        gg, ga, gPg = torch.stack(
+            [(Gt * Gt).sum(1), Gt @ ad, quad(Gt) / null.sigma2]).cpu().numpy()
     with np.errstate(divide="ignore", invalid="ignore"):
         chi2 = np.where(gPg > 0, ga * ga / gPg, np.inf)
     mask = (gg > 1e-12) & (chi2 < NULL_CHI2_CUTOFF) & (gPg > 0)
@@ -265,7 +286,7 @@ def splmm_grammar_scan(
     Ks = _coerce_sparse(K, cutoff)
     null = fit_sparse_null(Ks, ytilde, n_eff)
     a = null.factor.solve(ytilde) / null.sigma2
-    gamma, n_markers = _calibrate_gamma(pg, proj, null, a, seed)
+    gamma, n_markers = _calibrate_gamma(pg, X, C, null, a, seed, dev)
     gamma_eff = gamma / null.sigma2
     info = {
         "lambda_null": null.lbd,

@@ -20,7 +20,8 @@ Names in use: the spans of the scans (``fit_null``, ``rotate_y``,
 ``kernels``, ``to_host``, ``results``, ``splmm_grammar_scan``,
 ``sparse_null``, ``block_spectral``, ``gamma``, ``host_p``) and the stages
 of ``jx gwas``; the counters ``h2d_bytes`` (bytes copied from the host to a
-device) and ``launch.<wrapper>`` (ops.kernels' launches).
+device), ``launch.<wrapper>`` (ops.kernels' launches) and ``gamma.card`` /
+``gamma.host`` (GRAMMAR γ calibrations on the device / on the host).
 """
 
 from __future__ import annotations

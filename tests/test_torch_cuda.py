@@ -396,7 +396,8 @@ def test_fastlmm_scan_on_card_matches_cpu(dev, model):
 
 def test_sparse_scans_on_card_match_cpu(dev):
     """The band-streamed sparse GRM, the device quadratic and -splmm /
-    -splmm-exact on the card against the CPU."""
+    -splmm-exact on the card against the CPU; -splmm's γ (f64 on either
+    device) at rtol 1e-12 over the same markers."""
     from janusx_tpu_torch.models import splmm
 
     pg, _, Y, cov = _scan_problem(3000, 300, 1)
@@ -414,6 +415,9 @@ def test_sparse_scans_on_card_match_cpu(dev):
         card, info = scan(pg, Kc, Y[:, 0], cov, block=512, superblock=1024, device=dev)
         cpu, info_c = scan(pg, Kc, Y[:, 0], cov, block=512, device="cpu")
         assert info["lambda_null"] == info_c["lambda_null"]
+        if scan is splmm.splmm_grammar_scan:  # γ's f64 statistics on the card
+            assert info["gamma"] == pytest.approx(info_c["gamma"], rel=1e-12)
+            assert info["n_gamma_markers"] == info_c["n_gamma_markers"]
         np.testing.assert_array_equal(np.isnan(card.beta), np.isnan(cpu.beta))
         assert _dlogp(card.pwald, cpu.pwald) <= 5e-3
 

@@ -77,18 +77,36 @@ def test_block_spectral_matches_reference(route):
 
 
 def test_device_quad_matches_host_quad_and_reference():
+    """The device quadratic on a kinship with singletons and padded
+    components: f32 by default (the reference's bound, and bit for bit the
+    bucketed gather/rotate/weight sum in f32), and in f64 the host ``quad``
+    at rtol 1e-12."""
     import torch
 
     rng = np.random.default_rng(42)
     K = _family_sparse_k(97, rng)
     bt = tss.BlockSpectralK.from_sparse(K)
     bj = jss.BlockSpectralK.from_sparse(K)
+    sizes = [b.idx.shape[1] for b in bt.buckets]
+    assert 1 in sizes and bt.n_pad > 0
     G = rng.normal(size=(8, 97)).astype(np.float32)
     lbd = 0.7
     got = bt.device_quad_fn(lbd, "cpu")(torch.from_numpy(G)).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, bt.quad(lbd, G.T.astype(np.float64)), rtol=2e-4)
     np.testing.assert_allclose(got, np.asarray(bj.device_quad_fn(lbd)(G)), rtol=2e-4)
+    Gz = torch.nn.functional.pad(torch.from_numpy(G), (0, 1))
+    plain = torch.zeros(8, dtype=torch.float32)
+    for b in bt.buckets:
+        rot = torch.einsum("bcs,cst->bct", Gz[:, torch.as_tensor(b.idx)],
+                           torch.as_tensor(b.U, dtype=torch.float32))
+        w = torch.as_tensor(1.0 / (b.svals + lbd), dtype=torch.float32)
+        plain = plain + torch.einsum("bct,ct->b", rot * rot, w)
+    np.testing.assert_array_equal(got, plain.numpy())
+    G64 = rng.normal(size=(8, 97))
+    got64 = bt.device_quad_fn(lbd, "cpu", dtype=torch.float64)(torch.from_numpy(G64))
+    assert got64.dtype == torch.float64
+    np.testing.assert_allclose(got64.numpy(), bt.quad(lbd, G64.T), rtol=1e-12)
 
 
 def test_build_sparse_grm_matches_reference(family_panel):  # noqa: F811
@@ -137,16 +155,29 @@ def _close(a, b, rtol, what, floor=0.0):
         what, np.max(err / (np.abs(b[ok]) + floor)))
 
 
+@pytest.mark.parametrize("percolated", [False, True], ids=["spectral", "lu"])
 @pytest.mark.parametrize("ncov", [0, 2])
-def test_splmm_grammar_matches_reference(sparse_problem, ncov):
+def test_splmm_grammar_matches_reference(sparse_problem, monkeypatch, ncov, percolated):
     """-splmm on the same sparse K: the host null fit and γ calibration
-    are the reference's (λ_null, σ², γ rtol 1e-12); the per-SNP grams are
+    are the reference's (λ_null, σ², γ rtol 1e-12), γ's statistics formed
+    in f64 by torch (spectral: one ``gamma.card`` count a scan) or on the
+    host (a percolated kinship: one ``gamma.host``); the per-SNP grams are
     f32 in both packages: beta/se rtol 1e-5, a beta of ~0 with the
     absolute floor 1e-5 se (tests/test_torch_lm_fvlmm.py's)."""
+    from janusx_tpu_torch.utils import trace
+
     pj, pt, K, y, cov = sparse_problem
+    if percolated:
+        monkeypatch.setenv("JX_TPU_SPARSE_MAX_DENSE_COMP", "6")
     c = cov[:, :ncov] if ncov else None
     rj, ij = jsp.splmm_grammar_scan(pj, K, y, c, block=256)
+    before = trace.counts()
     rt, it = tsp.splmm_grammar_scan(pt, K, y, c, block=256, superblock=512, device="cpu")
+    after = trace.counts()
+    route = "gamma.host" if percolated else "gamma.card"
+    for name in ("gamma.card", "gamma.host"):
+        gained = after.get(name, 0) - before.get(name, 0)
+        assert gained == (name == route), (name, gained)
     for key in ("lambda_null", "sigma2", "gamma"):
         assert it[key] == pytest.approx(ij[key], rel=1e-12), key
     assert (it["n_gamma_markers"], it["max_component"]) == (ij["n_gamma_markers"],
