@@ -35,9 +35,19 @@ route's, models.lmm.lattice_superblock, since it holds Gr (m, k <= n)):
 - the λ lattice: per chunk of rows one stacked ((2+p)B, k) @ (k, G)
   ``torch.matmul`` plus the rank-1 complement corrections, then
   core.reml.grid_argmin_schur — the reference's XLA route (K2 is not on
-  this path);
+  this path) — with y's side of each grid point scaled so that the f32
+  terms stay O(1) at any n (``_grid_shared_lr``);
 - beta/se (and the ML loglik for lmm2) at each λ*: f32 grams, then the
   small (p+1) Schur algebra in f64 (``_final_stats_lr``).
+
+Spans (utils.trace): ``lowrank_scan``, the route; ``lr_rotate_y``, the
+host's rotated design; ``lr_null``, the host null fit and the switch test;
+``lr_basis``, the basis (set-up); ``lr_lattice``, a superblock's lattice
+and epilogue after its rotation; inside the route the shared ``feed``,
+``superblock``, ``upload``, ``kernels``, ``to_host`` and ``results``.
+Counter ``lowrank.superblocks``: one per resident superblock scanned. The
+per-trait operands of the grid and the constants count under
+``h2d_bytes``.
 """
 
 from __future__ import annotations
@@ -57,7 +67,7 @@ from janusx_tpu_torch.models.scan_common import ScanResult, finalize_invalid
 from janusx_tpu_torch.models.superblocks import replicas, scan_resident, stream
 from janusx_tpu_torch.ops import decode, kernels
 from janusx_tpu_torch.parallel.mesh import home_device
-from janusx_tpu_torch.utils import devcache
+from janusx_tpu_torch.utils import devcache, trace
 
 _BAD = 1e8
 GENETIC_MODELS = ("add", "dom", "rec", "het")
@@ -109,6 +119,7 @@ def select_kinship_snps_ld(pg: PackedGenotypes, q: int,
     return kept[take]
 
 
+@trace.spanned("lr_basis")
 def lowrank_basis_from_snps(
     pg: PackedGenotypes,
     q: int | None = None,
@@ -181,6 +192,7 @@ class RotatedLR(NamedTuple):
         return self.Xr.shape[1]
 
 
+@trace.spanned("lr_rotate_y")
 def make_rotated_lr(
     lrb: LowRankBasis, y: np.ndarray, X_cov: np.ndarray | None
 ) -> RotatedLR:
@@ -236,6 +248,7 @@ def _null_pieces_lr(rot: RotatedLR, lg: float):
     return M, rhs, ayy, logdetV
 
 
+@trace.spanned("lr_null")
 def fit_null_reml_lr(rot: RotatedLR) -> tuple[NullFit, np.ndarray, float]:
     """Host Brent null REML fit on the low-rank objective.
 
@@ -297,6 +310,7 @@ def fit_null_reml_lr(rot: RotatedLR) -> tuple[NullFit, np.ndarray, float]:
     return fit, np.asarray(beta), float(rtwr / (n - p))
 
 
+@trace.spanned("lr_null")
 def lowrank_switch_p(rot: RotatedLR) -> tuple[float, NullFit]:
     """Boundary LRT p for Va=0 (LMM->LM auto-switch) from the low-rank
     null — workflows.gwas.lmm_to_lm_switch_p's semantics. Returns
@@ -314,12 +328,24 @@ def lowrank_switch_p(rot: RotatedLR) -> tuple[float, NullFit]:
     return p, null
 
 
-def _grid_shared_lr(rot: RotatedLR, grid_lg: np.ndarray, dev) -> GridShared:
-    """Shared λ-grid pieces (host f64 -> f32 device tensors; the grid f64).
+def _grid_shared_lr(rot: RotatedLR, grid_lg: np.ndarray,
+                    dev) -> tuple[GridShared, torch.Tensor]:
+    """Shared λ-grid pieces (host f64 -> f32 device tensors; the grid f64),
+    and ``ysc`` (G,) f32, the scale of each grid point's per-SNP y gram.
 
     w32 carries the (G, k) LOW-RANK weights; the complement weight w0 is
     folded into the shared grams here and applied to the per-SNP pieces
-    on the device via rank-1 outer products."""
+    on the device via rank-1 outer products.
+
+    The lattice compares each SNP's -REML across λ in f32, and its terms
+    grow with n: at n = 60,000, (n-p-1)·log(r'V⁻¹r) and log|V| are ~10^6,
+    an f32 ulp of ~0.1, enough to move λ* within its grid cell and p by up
+    to 0.1 in log10. So y's side of every grid point is scaled by
+    1/sqrt(y'V⁻¹y) (ayy32 = 1, axy32 and Ainv_axy32 by ``ysc``, the SNPs'
+    agy by ``ysc`` in ``_lr_rows``), which scales each cell's r'V⁻¹r by
+    1/y'V⁻¹y, and (n-p-1)·log(y'V⁻¹y) is added to log|V| in f64, less its
+    minimum over the grid: each cell's -REML less a constant, with terms
+    of O(1) near the optimum."""
     p = rot.p
     G = len(grid_lg)
     lbd = 10.0 ** grid_lg
@@ -342,13 +368,16 @@ def _grid_shared_lr(rot: RotatedLR, grid_lg: np.ndarray, dev) -> GridShared:
     logdetAr = 2.0 * np.sum(np.log(np.diagonal(L, axis1=-2, axis2=-1)), axis=-1)
     Ar_inv = np.linalg.inv(Ar)
     Ainv_axy = np.einsum("gpq,gq->gp", Ar_inv, axy)
-    t32 = lambda a: torch.as_tensor(a, dtype=f32, device=dev)
-    return GridShared(
-        grid_lg=torch.as_tensor(grid_lg, dtype=f64, device=dev),
-        w32=t32(w), logdetV32=t32(logdetV), Axx32=t32(Axx), axy32=t32(axy),
-        ayy32=t32(ayy), Ar_inv32=t32(Ar_inv), Ainv_axy32=t32(Ainv_axy),
-        logdetAr32=t32(logdetAr),
+    ysc = 1.0 / np.sqrt(ayy)
+    logdetV = logdetV + (rot.n - p - 1) * np.log(ayy)
+    t32 = lambda a: trace.uploaded(torch.as_tensor(a, dtype=f32, device=dev))
+    sh = GridShared(
+        grid_lg=trace.uploaded(torch.as_tensor(grid_lg, dtype=f64, device=dev)),
+        w32=t32(w), logdetV32=t32(logdetV - logdetV.min()), Axx32=t32(Axx),
+        axy32=t32(axy * ysc[:, None]), ayy32=t32(np.ones(G)), Ar_inv32=t32(Ar_inv),
+        Ainv_axy32=t32(Ainv_axy * ysc[:, None]), logdetAr32=t32(logdetAr),
     )
+    return sh, t32(ysc)
 
 
 def _transform_codes(codes: torch.Tensor, model: str) -> torch.Tensor:
@@ -409,7 +438,8 @@ class _LrConsts(NamedTuple):
 
 
 def _lr_consts(rot: RotatedLR, Uk: torch.Tensor, dev) -> _LrConsts:
-    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    t = lambda a, dt: trace.uploaded(torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                                     device=dev))
     return _LrConsts(
         Uk=Uk, X=t(rot.X, f32), y=t(rot.y, f32), Xr=t(rot.Xr, f32), yr=t(rot.yr, f32),
         S64=t(rot.S, f64), PXX64=t(rot.PXX, f64), PXy64=t(rot.PXy, f64),
@@ -476,10 +506,11 @@ def _final_stats_lr(cs: _LrConsts, Gr, cgX, cgy, cgg, lg_star, n: int,
     return beta, se, torch.where(ok, ml, torch.full_like(ml, -_BAD))
 
 
-def _lr_rows(G, Gr, cs: _LrConsts, sh: GridShared, n: int, with_ml: bool):
+def _lr_rows(G, Gr, cs: _LrConsts, sh: GridShared, ysc, n: int, with_ml: bool):
     """A chunk of rows: centered genetic-model values G (B, n) and their
     rotation Gr (B, k) -> grid λ* and per-lane beta/se. Returns (5, B) f64:
-    (log10 λ*, beta, se, ml, g'g) (fastlmm.py:491-534)."""
+    (log10 λ*, beta, se, ml, g'g) (fastlmm.py:491-534). ``sh`` and ``ysc``
+    are ``_grid_shared_lr``'s, y's side scaled per grid point."""
     gX = G @ cs.X  # (B, p)
     gy = G @ cs.y  # (B,)
     gg = torch.sum(G * G, dim=-1)
@@ -499,7 +530,7 @@ def _lr_rows(G, Gr, cs: _LrConsts, sh: GridShared, n: int, with_ml: bool):
     A = E @ wT  # ((2+p)B, G)
     del E
     agg = A[:B] + cgg.to(f32)[:, None] * w0g
-    agy = A[B:2 * B] + cgy.to(f32)[:, None] * w0g
+    agy = (A[B:2 * B] + cgy.to(f32)[:, None] * w0g) * ysc[None, :]
     axg = torch.stack([A[(2 + j) * B:(3 + j) * B] + cgX[:, j].to(f32)[:, None] * w0g
                        for j in range(p)], dim=-1)  # (B, G, p)
     lg_star = grid_argmin_schur(sh, agg, agy, axg, n)
@@ -507,7 +538,7 @@ def _lr_rows(G, Gr, cs: _LrConsts, sh: GridShared, n: int, with_ml: bool):
     return torch.stack([lg_star, beta, se, ml, gg.double()])
 
 
-def _scan_chunk(pk, n: int, model: str, cs: _LrConsts, U_split, sh: GridShared,
+def _scan_chunk(pk, n: int, model: str, cs: _LrConsts, U_split, sh: GridShared, ysc,
                 with_ml: bool, rows: int):
     """One resident superblock (nblk, B, nb) packed -> (5, nblk*B) f64 on
     the device. ``add``: one K1 launch rotates every row; the lattice and
@@ -520,13 +551,15 @@ def _scan_chunk(pk, n: int, model: str, cs: _LrConsts, U_split, sh: GridShared,
         tm = torch.cat([_transformed(pk[i], n, "add")[2][:, 0] for i in range(nblk)])
         Gr_all = kernels.decode_rotate(flat, tm, cs.Uk, U_split=U_split)
     outs = []
-    for r0 in range(0, M, rows):
-        G = _decode_transformed_centered(flat[r0:r0 + rows], n, model)
-        Gr = G @ cs.Uk if Gr_all is None else Gr_all[r0:r0 + rows]
-        outs.append(_lr_rows(G, Gr, cs, sh, n, with_ml))
-    return torch.cat(outs, dim=1)
+    with trace.span("lr_lattice"):
+        for r0 in range(0, M, rows):
+            G = _decode_transformed_centered(flat[r0:r0 + rows], n, model)
+            Gr = G @ cs.Uk if Gr_all is None else Gr_all[r0:r0 + rows]
+            outs.append(_lr_rows(G, Gr, cs, sh, ysc, n, with_ml))
+        return torch.cat(outs, dim=1)
 
 
+@trace.spanned("lowrank_scan")
 def fastlmm_scan(
     pg: PackedGenotypes,
     lrb: LowRankBasis,
@@ -559,7 +592,7 @@ def fastlmm_scan(
     if null is None:
         null, _, _ = fit_null_reml_lr(rot)
     grid_lg = np.linspace(config.LOG10_LAMBDA_LOW, config.LOG10_LAMBDA_HIGH, grid_points)
-    sh = _grid_shared_lr(rot, grid_lg, dev)
+    sh, ysc = _grid_shared_lr(rot, grid_lg, dev)
     cs = _lr_consts(rot, devcache.to_device(lrb.U, f32, dev), dev)
     n = pg.n
     block = min(block, pg.m) if pg.m else block
@@ -568,16 +601,17 @@ def fastlmm_scan(
     extras = ({"lambda_null": null.lbd, "ml_null": null.ml, "rank": lrb.k} if lmm2
               else {"lambda_null": null.lbd, "rank": lrb.k})
 
-    reps = replicas((cs, sh), mesh)
+    reps = replicas((cs, sh, ysc), mesh)
 
     def compute(i, pk, mn, d):
-        cs_d, sh_d = reps[i]
+        cs_d, sh_d, ysc_d = reps[i]
         # K1's bf16 pieces of Uk, made once per basis and device
         U_split = (devcache.derived(lrb.U, "u_split", d, lambda: kernels.split_u(cs_d.Uk))
                    if model == "add" else None)
-        return (_scan_chunk(pk, n, model, cs_d, U_split, sh_d, lmm2, rows),)
+        return (_scan_chunk(pk, n, model, cs_d, U_split, sh_d, ysc_d, lmm2, rows),)
 
     def chunk(sub):
+        trace.count("lowrank.superblocks")
         lg, beta, se, ml, ssq = scan_resident(sub, block, dev, mesh, compute, mean=False)[0]
         pwald = jstats.pwald_from_beta_se(beta, se)
         if lmm2:

@@ -18,10 +18,12 @@ device work.
 Names in use: the spans of the scans (``fit_null``, ``rotate_y``,
 ``null_brent``, ``lmm_scan``, ``feed``, ``superblock``, ``upload``,
 ``kernels``, ``to_host``, ``results``, ``splmm_grammar_scan``,
-``sparse_null``, ``block_spectral``, ``gamma``, ``host_p``) and the stages
+``sparse_null``, ``block_spectral``, ``gamma``, ``host_p``, ``lowrank_scan``,
+``lr_rotate_y``, ``lr_null``, ``lr_basis``, ``lr_lattice``) and the stages
 of ``jx gwas``; the counters ``h2d_bytes`` (bytes copied from the host to a
-device), ``launch.<wrapper>`` (ops.kernels' launches) and ``gamma.card`` /
-``gamma.host`` (GRAMMAR γ calibrations on the device / on the host).
+device), ``launch.<wrapper>`` (ops.kernels' launches), ``gamma.card`` /
+``gamma.host`` (GRAMMAR γ calibrations on the device / on the host) and
+``lowrank.superblocks`` (resident superblocks of the low-rank scan).
 """
 
 from __future__ import annotations

@@ -367,6 +367,23 @@ def test_decode_rotate_at_the_lowrank_width(dev):
         torch.testing.assert_close(got, _PLAIN[prec](pk, mn, U), rtol=1e-5, atol=1e-4)
 
 
+def test_decode_rotate_at_the_lowrank_benchmark_shape(dev):
+    """K1 at the low-rank benchmark cell's shape: a reduction over n =
+    60,000 samples into N = k = 4,096 columns of an orthonormal basis,
+    4,096 rows, in both modes against the plain versions."""
+    rng = np.random.default_rng(60)
+    n, N = 60_000, 4096
+    packed, mean = _block(rng, 4096, n)
+    pk, mn = torch.from_numpy(packed).to(dev), torch.from_numpy(mean).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(60)
+    U = torch.linalg.qr(torch.randn((n, N), generator=gen, device=dev))[0].contiguous()
+    U_split = kernels.split_u(U)
+    for prec in ("highest", "high"):
+        got = kernels.decode_rotate(pk, mn, U, prec=prec, U_split=U_split)
+        assert got.shape == (4096, N)
+        torch.testing.assert_close(got, _PLAIN[prec](pk, mn, U), rtol=1e-5, atol=1e-4)
+
+
 def _dlogp(a, b):
     return float(np.max(np.abs(np.log10(a) - np.log10(b))))
 
@@ -389,6 +406,43 @@ def test_fastlmm_scan_on_card_matches_cpu(dev, model):
     assert kernels.launch_counts()["decode_rotate"] == (supers if model == "add" else 0)
     cpu, null_c = fastlmm.fastlmm_scan(pg, lrb, Y[:, 0], cov, block=512, model=model,
                                        device="cpu")
+    assert null.lbd == null_c.lbd
+    np.testing.assert_array_equal(np.isnan(card.beta), np.isnan(cpu.beta))
+    assert _dlogp(card.pwald, cpu.pwald) <= 5e-3
+
+
+def test_fastlmm_scan_at_8000_samples_on_card_matches_cpu(dev):
+    """-lowrank add at n = 8,000 with a kinship of q = 1,024 SNPs, over two
+    resident superblocks, on the card against the CPU: Δ(-log10 p) <= 5e-3
+    (tests/test_scans.py:155), the same valid SNPs and the same λ_null
+    (host f64 on both), K1 launched once a superblock."""
+    from janusx_tpu_torch.io.gdata import GenotypeData, SiteInfo
+    from janusx_tpu_torch.io.packed import QcParams, pack_genotypes
+    from janusx_tpu_torch.models import fastlmm
+
+    rng = np.random.default_rng(8000)
+    m, n = 6000, 8000
+    g = rng.binomial(2, rng.uniform(0.05, 0.5, m)[:, None], size=(m, n)).astype(np.int8)
+    g[rng.random((m, n)) < 0.02] = -1
+    site = dict(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
+                snp=np.array([f"rs{i}" for i in range(m)], object),
+                allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+    pg = pack_genotypes(GenotypeData(g, SiteInfo(**site), np.array(
+        [f"i{j}" for j in range(n)], object)), QcParams())
+    lrb = fastlmm.lowrank_basis_from_snps(pg, q=1024)
+    assert lrb.k == 1024
+    gc = pg.take_snps(np.arange(0, pg.m, 7)).centered()
+    y = 1.0 + gc.T @ rng.normal(0, 0.03, gc.shape[0]) + rng.normal(size=n)
+    runs = {}
+    for d in (dev, "cpu"):
+        rot = fastlmm.make_rotated_lr(lrb, y, None)
+        _, null = fastlmm.lowrank_switch_p(rot)
+        kernels.reset_launches()
+        runs[str(d)] = fastlmm.fastlmm_scan(pg, lrb, y, rot=rot, null=null, block=2048,
+                                            superblock=4096, device=d)
+        if d == dev:
+            assert kernels.launch_counts()["decode_rotate"] == -(-pg.m // 4096) == 2
+    (card, null), (cpu, null_c) = runs[str(dev)], runs["cpu"]
     assert null.lbd == null_c.lbd
     np.testing.assert_array_equal(np.isnan(card.beta), np.isnan(cpu.beta))
     assert _dlogp(card.pwald, cpu.pwald) <= 5e-3
