@@ -32,13 +32,19 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     launch; "default" also vs the "highest" plain version under K2's
     bounds (finite/inf flips counted and printed); both modes' times at
     T = 1 and T = 4 beside the library yardstick (the grams alone as one
-    torch.matmul, f32 or bf16);
+    torch.matmul, f32 or bf16); then N1, the null REML fit's kernel, at the
+    dense cell's shape (n = 5,000, p = 1; 1 and 4 lanes) against its plain
+    version: log10 λ within 1e-6, -REML and ML within rel 1e-10, both
+    timed by CUDA events over 20 calls, beside its bound (the operands read
+    once) and the chain of dependent evaluations it waits on;
  5. the main path: a synthetic PLINK panel (1,940 samples, 1,410
     phenotyped, in sibships of 5; 600,000 SNPs, MAF ~ U[0.05, 0.5], 2 %
     missing; the trait is 20 planted QTLs of 3 % variance each + a 20 %
     polygenic background + 20 % noise) through ``jx gwas -lmm -force-model``
     (janusx_tpu_torch.cli.main); checks the TSV, the p-values, λ_null, QTL
-    recovery, and that both kernels launched; prints per-stage seconds;
+    recovery, and that both kernels launched; holds the null fit's launch
+    of N1 against its plain version on the phase's own rotated state, as
+    phase 4 does; prints per-stage seconds;
  6. cross-check: the first 16,384 QC'd SNPs rescanned on the CPU (plain
     versions) with the same basis: max Δ(-log10 p) <= 0.05, the same top
     5, λ_null within 2e-3; then phase 5's trait rescanned on the card
@@ -49,9 +55,10 @@ Phases, one line each (any failure exits non-zero; nothing is caught):
     more polygenic ones, one of noise that the switch test sends to LM)
     through ``jx gwas -lm -lmm -lmm2 -fvlmm -trait-level`` without
     -force-model, scanning chromosomes 1-5 (``-bimrange``); checks that the noise trait ran as LM, that K1 and K2
-    launched once per superblock for the whole trait batch, that the
-    trait-level TSVs are rectangular, that phase 5's trait agrees with
-    phase 5's TSV (Δ(-log10 p) <= 5e-3), and a CPU rescan of the first
+    launched once per superblock for the whole trait batch, N1's first
+    one-trait and first trait-batch launch against its plain version on
+    the phase's own rotated states, that the trait-level TSVs are
+    rectangular, that phase 5's trait agrees with phase 5's TSV (Δ(-log10 p) <= 5e-3), and a CPU rescan of the first
     16,384 SNPs of every trait and model (Δ(-log10 p) <= 0.05, same top 5);
  8. the other routes on a -bimrange window of ~29,600 SNPs: ``-lmm
     -scan-method brent`` against phase 5's grid rows (Δ(-log10 p) <=
@@ -274,9 +281,28 @@ WINDOW = "1:0.1-1.6"  # -bimrange of phase 8: ~29,580 SNPs of chromosome 1
 TRAIT_LEVEL_CHROMS = 5  # phase 7 scans chromosomes 1-5 of 19 (~158,000 SNPs)
 LOWRANK_Q = 1000  # -lowrank's kinship SNPs in phase 9: rank k = 1000 < n
 HEADER = "chrom\tpos\tsnp\tallele0\tallele1\taf\tmiss\tbeta\tse\tchisq\tpwald"
-# every kernel's wrapper (ops/kernels.py launch_counts), each with no launch
+# the scan and Gibbs kernels' wrappers (ops/kernels.py launch_counts), each
+# with no launch; the null fit's kernel, which launches wherever a dense null
+# model is fitted, is read apart (null_fit_launches)
 NO_LAUNCHES = dict.fromkeys(("decode_rotate", "grid_neg_reml_lattice", "gibbs_sweep_marker",
                              "gibbs_sweep_block_mvn"), 0)
+
+
+def scan_launches() -> dict:
+    """ops/kernels.py's launch counts of NO_LAUNCHES' kernels."""
+    from janusx_tpu_torch.ops import kernels
+
+    counts = kernels.launch_counts()
+    return {k: counts[k] for k in NO_LAUNCHES}
+
+
+def null_fit_launches() -> tuple[int, int]:
+    """(launches of the null fit's kernel, fits through its plain version)
+    since the last kernels.reset_launches()."""
+    from janusx_tpu_torch.ops import kernels
+    from janusx_tpu_torch.utils import trace
+
+    return kernels.launch_counts()["null_reml_brent"], trace.counts().get("null_fit.plain", 0)
 
 
 class SmokeFailure(RuntimeError):
@@ -705,18 +731,21 @@ def read_tsv(path: str):
 
 
 def run_cli(argv, phase: str):
-    """A ``jx`` module through the port's CLI with every launch count set
-    to 0 just before: returns (what it printed, wall seconds, launches)."""
+    """A ``jx`` module through the port's CLI with every launch count (and
+    null_fit.*) set to 0 just before: returns (what it printed, wall
+    seconds, NO_LAUNCHES' launches)."""
     from janusx_tpu_torch.cli.main import main as cli_main
     from janusx_tpu_torch.ops import kernels
+    from janusx_tpu_torch.utils import trace
 
     kernels.reset_launches()
+    trace.reset("null_fit.")
     buf = io.StringIO()
     t1 = time.monotonic()
     with contextlib.redirect_stdout(buf):
         rc = cli_main(argv)
     wall = time.monotonic() - t1
-    launches = kernels.launch_counts()
+    launches = scan_launches()
     printed = buf.getvalue().strip()
     say(f"{phase} cli: rc={rc} wall={wall:.2f} s :: " + printed.replace("\n", " | "))
     require(rc == 0, f"{phase}: {argv[0]} CLI returned {rc}")
@@ -791,8 +820,9 @@ def run_main_path(d: str, m: int, panel):
     say(f"phase 5 panel: {N_SAMPLES} samples ({N_PHENO} phenotyped) x {m} SNPs "
         f"written in {secs:.2f} s, beside the kernels' build; {kept} SNPs pass QC")
     out = os.path.join(d, "out")
-    printed, _, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lmm",
-                                    "-force-model", "-n", "0", "-o", out], "phase 5")
+    with held_null_fits() as held_fits:
+        printed, _, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lmm",
+                                        "-force-model", "-n", "0", "-o", out], "phase 5")
     # the reference's run line: trait, model, n=, m=, seconds, TSV
     fields = printed.splitlines()[-1].split("\t")
     require(len(fields) == 6 and fields[2].startswith("n=") and fields[4].endswith("s"),
@@ -800,6 +830,11 @@ def run_main_path(d: str, m: int, panel):
     require(launches["decode_rotate"] > 0 and launches["grid_neg_reml_lattice"] > 0
             and launches["gibbs_sweep_marker"] == launches["gibbs_sweep_block_mvn"] == 0,
             f"launches {launches}: K1 and K2 must launch, the Gibbs sweeps not")
+    card_fits, plain_fits = null_fit_launches()
+    require(card_fits >= 1 and plain_fits == 0, f"phase 5 null fits: {card_fits} launches "
+            f"of null_reml_brent, {plain_fits} through the plain version")
+    launches = {**launches, "null_reml_brent": card_fits}
+    hold_null_fits(held_fits, "phase 5")
     header, rows = read_tsv(os.path.join(out, "jx.test0.LMM.assoc.tsv"))
     require(header == HEADER, f"TSV header {header!r}")
     require(len(rows) == kept, f"TSV has {len(rows)} rows, {kept} SNPs pass QC")
@@ -895,9 +930,10 @@ def run_trait_level(d: str, prefix: str, Y, rows5, cpu) -> dict:
     chroms = [str(c) for c in range(1, TRAIT_LEVEL_CHROMS + 1)]
     ranges = [a for c in chroms for a in ("-bimrange", f"{c}:0-{M_SNPS * 50 / 1e6:g}")]
     rows5 = [r for r in rows5 if r[0] in chroms]
-    _, wall, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lm", "-lmm",
-                                 "-lmm2", "-fvlmm", "-trait-level", *ranges, "-o", out],
-                                "phase 7")
+    with held_null_fits() as held_fits:
+        _, wall, launches = run_cli(["gwas", "-bfile", prefix, "-p", pheno, "-lm", "-lmm",
+                                     "-lmm2", "-fvlmm", "-trait-level", *ranges, "-o", out],
+                                    "phase 7")
     with open(os.path.join(out, "jx.gwas.summary.json")) as fh:
         summary = json.load(fh)
     runs = {(r["trait"], r["requested"]): r for r in summary["runs"]}
@@ -915,6 +951,11 @@ def run_trait_level(d: str, prefix: str, Y, rows5, cpu) -> dict:
             "grid_neg_reml_lattice": 2 * sb4}
     require(launches == want, f"launches {launches}, expected {want} (one per "
                               f"superblock for all {len(TRAITS) - 1} traits)")
+    card_fits, plain_fits = null_fit_launches()
+    require(card_fits >= 1 and plain_fits == 0, f"phase 7 null fits: {card_fits} launches "
+            f"of null_reml_brent, {plain_fits} through the plain version")
+    launches = {**launches, "null_reml_brent": card_fits}
+    hold_null_fits(held_fits, "phase 7")
     # rectangular trait-level TSVs, grouped by header
     for name in ("traitlevel", "traitlevel.lmm2"):
         with open(os.path.join(out, f"jx.{name}.assoc.tsv")) as fh:
@@ -1342,7 +1383,7 @@ def run_gs_phase(d: str, prefix: str, pheno: str, gv, cpu, dev, smi: str) -> dic
             genotype=sub, phenotype=pheno, out_prefix=os.path.join(d, f"gs_{plat}", "jxgs"),
             methods=tuple(GS_ROUTES), cv=2, export_effects=True, save_models=True))
         secs[plat] = time.monotonic() - t1
-        for k, v in kernels.launch_counts().items():
+        for k, v in scan_launches().items():
             total[k] += v
     os.environ["JX_TPU_PLATFORM"] = platform
     (rc, sc), (rp, sp) = res["cuda"], res["cpu"]
@@ -2147,14 +2188,14 @@ def probe(targets: dict):
 
         def wrapped(*a, _fn=fn, _r=rec[name], **k):
             torch.cuda.synchronize()
-            before, t0 = kernels.launch_counts(), time.monotonic()
+            before, t0 = scan_launches(), time.monotonic()
             try:
                 return _fn(*a, **k)
             finally:
                 torch.cuda.synchronize()
                 _r["calls"] += 1
                 _r["s"] += time.monotonic() - t0
-                for key, v in kernels.launch_counts().items():
+                for key, v in scan_launches().items():
                     _r["launches"][key] += v - before[key]
 
         saved.append((owner, attr, fn))
@@ -2195,9 +2236,9 @@ class _Held:
                 or sum(self.keys.values()) >= HELD_PER_KERNEL * self.per_shape):
             return self.fn(*a, **k)
         copy = {n: v.clone() if torch.is_tensor(v) else v for n, v in args.arguments.items()}
-        before = kernels.launch_counts()[self.__name__]
+        before = scan_launches()[self.__name__]
         out = self.fn(*a, **k)
-        if kernels.launch_counts()[self.__name__] > before:
+        if scan_launches()[self.__name__] > before:
             self.keys[key] = self.keys.get(key, 0) + 1
             after = {n: args.arguments[n].clone() for n in ("beta", "var_b", "r")
                      if n in args.arguments}
@@ -2631,7 +2672,7 @@ def run_api(cpu, rows5, dev) -> dict:
         gebv = GenomicSelection("BayesB", device=dev).fit(G, ymask).predict()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = kernels.launch_counts()
+    launches = scan_launches()
     require(launches == {**NO_LAUNCHES, "gibbs_sweep_marker": BENCH_ITERS},
             f"phase 15 GenomicSelection BayesB: launches {launches}")
     require(gebv.shape == (pg.n,) and bool(np.isfinite(gebv).all()), "phase 15 GS: GEBVs")
@@ -3078,6 +3119,7 @@ def check_kernels(dev, join_panel) -> dict:
     # (the T = 4 scan's own superblocks are smaller), and ragged T = 3
     k2t = [check_k2(dev, basis, ys, rng, rows, GRID, 1, seed=25, timed=True),
            check_k2(dev, basis_r, ys_r, rng_r, 1000, 200, 2, seed=26, timed=False)]
+    null_fit = check_null_fit(dev)
     k1_err = {m: max(r[m][0] for r in k1) for m in ("highest", "high")}
     k2_err = {m: max(r[m][0] for r in k2 + k2t) for m in kernels.GRID_PRECS}
     # the least time the card could take: bf16 tensor-core passes at 989
@@ -3088,7 +3130,8 @@ def check_kernels(dev, join_panel) -> dict:
     k1_bytes = lambda N: rows * (-(-n // 4) + 4 + 4 * N) + 4 * n * N
     k2_bytes = lambda T: 4 * (rows * n + GRID * n + (T + 1) * n + T * R * GRID + T * rows * GRID)
     k2_flops = lambda T, passes: 2.0 * (2 + T) * rows * GRID * n * passes
-    return dict(panel=panel, k1_err=k1_err["highest"], k1_ms=k1[0]["highest"][1],
+    return dict(panel=panel, null_fit=null_fit,
+                k1_err=k1_err["highest"], k1_ms=k1[0]["highest"][1],
                 k1_plain=k1[0]["highest"][2], k1_lib=k1[0]["library"],
                 k1_bound=bound(2.0 * rows * n * n * 6, k1_bytes(n)),
                 k1_lr_err=k1[1]["highest"][0], k1_lr_ms=k1[1]["highest"][1],
@@ -3101,6 +3144,125 @@ def check_kernels(dev, join_panel) -> dict:
                 k2_default_err=k2_err["default"],
                 k2_bound={(T, m): bound(k2_flops(T, 6 if m == "highest" else 1), k2_bytes(T))
                           for T in (1, 4) for m in kernels.GRID_PRECS})
+
+
+NULL_FIT_N = 5000  # the dense cells' phenotyped samples (jxbench-5k-500k)
+
+
+def check_null_fit(dev) -> dict:
+    """Phase 4's end: N1 ``null_reml_brent`` (csrc/nullfit.cu) at the dense
+    cells' shape, n = 5,000 and p = 1, with 1 and 4 lanes (a single-trait
+    step and a four-trait step), against its plain version lane by lane
+    (core/reml.fit_null_reml_plain: the torch Brent): log10 λ within 1e-6
+    (NULL_BRENT_TOL: -REML is flat to its f64 rounding over ~1e-6 of log10 λ
+    near its optimum, so two sum orders stop the Brent apart), -REML within
+    rel 1e-10 of the plain optimum and ML within rel 1e-10 of the plain ML at
+    the kernel's λ (the f64 sums in another order). Times
+    both by CUDA events over 20 calls (the plain version syncs the host once
+    an iteration). The bound: every operand read once at 3.35 TB/s; the
+    chain: the Brent's evaluations, each a block reduction that waits on
+    the one before (counted on the plain version, whose last evaluation,
+    on a converged lane, is discarded)."""
+    import torch
+
+    from janusx_tpu_torch import config
+    from janusx_tpu_torch.core import reml
+    from janusx_tpu_torch.ops import kernels
+    from janusx_tpu_torch.ops.brent import brent_minimize_batched
+
+    n, out = NULL_FIT_N, {}
+    rng = np.random.default_rng(31)
+    # a GRM-like spectrum, the rotated intercept, traits of h² 0.2-0.8
+    s = np.sort(rng.gamma(0.6, 1.7, n))[::-1].copy() + 1e-3
+    x = 1.0 + 0.1 * rng.normal(size=n)
+    t64 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+    rots = []
+    for h2 in (0.25, 0.4, 0.55, 0.7):
+        yr = rng.normal(size=n) * np.sqrt(h2 * s + 1.0 - h2)
+        rots.append(reml.RotatedData(s=t64(s), Xr=t64(x[:, None]), yr=t64(yr),
+                                     PXX=t64(x[:, None] ** 2), PXy=t64((x * yr)[:, None]),
+                                     Pyy=t64(yr * yr)))
+    calls = [0]
+
+    def counted(t, rot=rots[0]):
+        calls[0] += 1
+        return reml.neg_reml_null(t, rot)
+
+    brent_minimize_batched(counted, config.LOG10_LAMBDA_LOW, config.LOG10_LAMBDA_HIGH,
+                           config.NULL_BRENT_TOL, config.NULL_BRENT_MAX_ITER, batch_shape=(1,),
+                           device=dev)
+    for T in (1, 4):
+        lanes = rots[:T]
+        dx, rel = null_fit_gap(reml.fit_null_reml_multi(lanes), lanes, f"phase 4 T={T}")
+        PXy = torch.stack([r.PXy for r in lanes])
+        Pyy = torch.stack([r.Pyy for r in lanes])
+        ms = cuda_ms(lambda: kernels.null_reml_brent(rots[0].s, rots[0].PXX, PXy, Pyy))
+        plain = cuda_ms(lambda: [reml.fit_null_reml_plain(r) for r in lanes], warmup=1)
+        nbytes = 8 * (n + n + T * n + T * n) + 8 * 3 * T
+        out[T] = dict(ms=ms, plain_ms=plain, bound=bound(0.0, nbytes), dx=dx, rel=rel)
+        say(f"phase 4 N1 null_reml_brent n={n} p=1 T={T}: ok, max |Δ log10 λ| {dx:.3g}, "
+            f"rel -REML/ML {rel:.3g}; kernel {ms:.4f} ms, plain (torch Brent, lane by lane) "
+            f"{plain:.4f} ms, bound {out[T]['bound'][0]:.6f} ms ({out[T]['bound'][1]}); "
+            f"the chain: {calls[0] - 1} dependent evaluations, "
+            f"{1e3 * ms / (calls[0] - 1):.2f} us each")
+    out["evaluations"] = calls[0] - 1
+    return out
+
+
+def null_fit_gap(got, rots, what: str, args=()) -> tuple[float, float]:
+    """The null fit's kernel, fits ``got`` of the states ``rots``, against
+    its plain version (core/reml.fit_null_reml_plain, with ``args``) on the
+    same states, as check_null_fit holds it: log10 λ within 1e-6, -REML
+    within rel 1e-10 of the plain optimum and ML within rel 1e-10 of the
+    plain ML at the kernel's λ. Returns (max |Δ log10 λ|, max rel)."""
+    import torch
+
+    from janusx_tpu_torch.core import reml
+
+    want = [reml.fit_null_reml_plain(r, *args) for r in rots]
+    dx = max(abs(g.log10_lbd - w.log10_lbd) for g, w in zip(got, want))
+    rel = 0.0
+    for g, w, r in zip(got, want, rots):
+        # ML is not flat at the REML optimum: compared at the kernel's λ
+        lg = torch.tensor([g.log10_lbd], dtype=torch.float64, device=r.s.device)
+        ml = float(reml.ml_null(lg, r)[0])
+        rel = max(rel, abs(g.reml - w.reml) / abs(w.reml), abs(g.ml - ml) / abs(ml))
+    require(dx <= 1e-6 and rel <= 1e-10,
+            f"{what} N1 null_reml_brent: |Δ log10 λ| {dx:.3g} (bound 1e-6), "
+            f"rel -REML/ML {rel:.3g} (bound 1e-10)")
+    return dx, rel
+
+
+@contextlib.contextmanager
+def held_null_fits():
+    """core/reml's launch of the null fit's kernel wrapped while the block
+    runs; yields the list of (states, their fits, the Brent's arguments) of
+    its first launch with one lane and its first with more."""
+    from janusx_tpu_torch.core import reml
+
+    kept, fn = [], reml._fit_null_card
+
+    def keep(rots, *args):
+        fits = fn(rots, *args)
+        if all((len(k[0]) > 1) != (len(rots) > 1) for k in kept):
+            kept.append((list(rots), fits, args))
+        return fits
+
+    reml._fit_null_card = keep
+    try:
+        yield kept
+    finally:
+        reml._fit_null_card = fn
+
+
+def hold_null_fits(kept: list, phase: str) -> None:
+    """Each launch held_null_fits() kept against the plain version on the
+    path's own rotated states (null_fit_gap); prints a line per launch."""
+    require(bool(kept), f"{phase}: no launch of null_reml_brent was kept")
+    for rots, fits, args in kept:
+        dx, rel = null_fit_gap(fits, rots, phase, args)
+        say(f"{phase} N1 null_reml_brent vs plain on the path's own states, T={len(rots)} "
+            f"n={rots[0].n} p={rots[0].p}: max |Δ log10 λ| {dx:.3g}, rel -REML/ML {rel:.3g}")
 
 
 F32_PEAK = 67e12  # the H100's f32 rate outside the tensor cores
@@ -3133,7 +3295,7 @@ def rescan_default(rows5, cpu, dev) -> float:
         res[prec], _ = lmm_scan(cpu["pg"], cpu["basis"], cpu["y"], device=dev)
         torch.cuda.synchronize()
         walls[prec] = time.monotonic() - t0  # the second "highest" scan is warm
-        require(kernels.launch_counts()["grid_neg_reml_lattice"] > 0, f"{prec} rescan: K2 never launched")
+        require(scan_launches()["grid_neg_reml_lattice"] > 0, f"{prec} rescan: K2 never launched")
     os.environ.pop("JX_TPU_GRID_MXU_PREC")
     require(list(res["default"].sites.snp) == [r[2] for r in rows5],
             "default rescan: SNP rows differ from phase 5's TSV")
@@ -3755,7 +3917,7 @@ def _mesh_scans(mesh, dev, cpu, Y, rows5) -> tuple:
         kernels.reset_launches()
         with held(per_shape=MESH_SHARDS) as kept:
             two = run(mesh=mesh)
-        paths[name] = kernels.launch_counts()
+        paths[name] = scan_launches()
         sb = -(-pg.m // lattice_superblock(N_PHENO, GRID, 2048, traits=T))
         want = {**NO_LAUNCHES, "decode_rotate": MESH_SHARDS * sb,
                 "grid_neg_reml_lattice": MESH_SHARDS * sb}
@@ -4020,6 +4182,7 @@ def run_phases(d: str, dev, smi: str, pipeline: KmerPipeline) -> int:
     held_by = lambda name: {p: e[name] for p, e in held_errs.items() if name in e}
     k2, k2d = k["k2"]["highest"], k["k2"]["default"]
     k2t, k2td = k["k2t"]["highest"], k["k2t"]["default"]
+    nf = k["null_fit"]
 
     src = "janusx_tpu_torch/csrc/"
     ref = "janusx_tpu/ops/pallas_kernels.py:"
@@ -4074,6 +4237,18 @@ def run_phases(d: str, dev, smi: str, pipeline: KmerPipeline) -> int:
           for name, line, g in (("gibbs_sweep_marker", "76", gibbs["gibbs_sweep_marker"]),
                                 ("gibbs_sweep_block_mvn", "214",
                                  gibbs["gibbs_sweep_block_mvn"]))),
+        {"name": "null_reml_brent", "route": "cuda", "source": src + "nullfit.cu",
+         # the XLA loop of the null fit (no Pallas)
+         "replaces": "janusx_tpu/core/reml.py:572", "launches": launches["null_reml_brent"],
+         "max_log10_lambda_err": max(nf[T]["dx"] for T in (1, 4)),
+         "max_rel_err": max(nf[T]["rel"] for T in (1, 4)), "ms": nf[1]["ms"],
+         "plain_ms": nf[1]["plain_ms"], "bound_ms": nf[1]["bound"][0],
+         "bound_by": nf[1]["bound"][1], "library_ms": None, "t4_ms": nf[4]["ms"],
+         "t4_plain_ms": nf[4]["plain_ms"], "t4_bound_ms": nf[4]["bound"][0],
+         # the Brent's dependent evaluations, one block reduction each
+         "evaluations": nf["evaluations"],
+         "launches_by_path": {p: c["null_reml_brent"] for p, c in paths.items()
+                              if "null_reml_brent" in c}},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

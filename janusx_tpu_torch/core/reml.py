@@ -27,6 +27,7 @@ import torch
 
 from janusx_tpu_torch import config
 from janusx_tpu_torch.core.spectral import SpectralBasis
+from janusx_tpu_torch.ops import kernels
 from janusx_tpu_torch.ops.brent import brent_minimize_batched
 from janusx_tpu_torch.ops.kernels import neg_reml_closed_form
 from janusx_tpu_torch.utils import trace
@@ -415,6 +416,40 @@ class NullFit(NamedTuple):
     ml: float  # ML loglik evaluated at the REML-optimal λ
 
 
+def fit_null_reml_plain(
+    rot: RotatedData,
+    low: float = config.LOG10_LAMBDA_LOW,
+    high: float = config.LOG10_LAMBDA_HIGH,
+    tol: float = config.NULL_BRENT_TOL,
+    max_iter: int = config.NULL_BRENT_MAX_ITER,
+) -> NullFit:
+    """Null REML fit by the batched Brent over log10 λ as torch ops on
+    rot's device, a batch of one lane (reference lmm_reml_null_f32,
+    src/stats/reml.rs:572): the plain version of ops.kernels'
+    null_reml_brent. Counts ``null_fit.plain``."""
+    trace.count("null_fit.plain")
+    x, fx = brent_minimize_batched(lambda t: neg_reml_null(t, rot), low, high,
+                                   tol, max_iter, batch_shape=(1,),
+                                   device=rot.s.device)
+    ml = ml_null(x, rot)
+    xf = float(x[0])
+    return NullFit(lbd=10.0 ** xf, log10_lbd=xf, reml=-float(fx[0]), ml=float(ml[0]))
+
+
+def _fit_null_card(rots, low, high, tol, max_iter) -> list[NullFit]:
+    """One null_reml_brent launch for every state of ``rots`` (one copy of
+    its (T, 3) result to the host); counts ``null_fit.card`` per state."""
+    r0 = rots[0]
+    if len(rots) == 1:
+        PXy, Pyy = r0.PXy[None], r0.Pyy[None]
+    else:
+        PXy = torch.stack([r.PXy for r in rots])
+        Pyy = torch.stack([r.Pyy for r in rots])
+    out = kernels.null_reml_brent(r0.s, r0.PXX, PXy, Pyy, low, high, tol, max_iter).tolist()
+    trace.count("null_fit.card", len(rots))
+    return [NullFit(lbd=10.0 ** x, log10_lbd=x, reml=-f, ml=ml) for x, f, ml in out]
+
+
 @trace.spanned("null_brent")
 def fit_null_reml(
     rot: RotatedData,
@@ -423,14 +458,39 @@ def fit_null_reml(
     tol: float = config.NULL_BRENT_TOL,
     max_iter: int = config.NULL_BRENT_MAX_ITER,
 ) -> NullFit:
-    """Null REML fit by the batched Brent over log10 λ on rot's device
-    (reference lmm_reml_null_f32, src/stats/reml.rs:572)."""
-    x, fx = brent_minimize_batched(lambda t: neg_reml_null(t, rot), low, high,
-                                   tol, max_iter, batch_shape=(1,),
-                                   device=rot.s.device)
-    ml = ml_null(x, rot)
-    xf = float(x[0])
-    return NullFit(lbd=10.0 ** xf, log10_lbd=xf, reml=-float(fx[0]), ml=float(ml[0]))
+    """Null REML fit by the Brent over log10 λ: on a card one launch of
+    the null_reml_brent kernel, on the CPU fit_null_reml_plain."""
+    if rot.s.is_cuda:
+        return _fit_null_card([rot], low, high, tol, max_iter)[0]
+    return fit_null_reml_plain(rot, low, high, tol, max_iter)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a is b or (a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+                      and torch.equal(a, b))
+
+
+def fit_null_reml_multi(
+    rots: list[RotatedData],
+    low: float = config.LOG10_LAMBDA_LOW,
+    high: float = config.LOG10_LAMBDA_HIGH,
+    tol: float = config.NULL_BRENT_TOL,
+    max_iter: int = config.NULL_BRENT_MAX_ITER,
+) -> list[NullFit]:
+    """fit_null_reml of each rotated state, for states that share s and
+    PXX (traits on one sample mask, basis and covariates; ValueError
+    otherwise): on a card one null_reml_brent launch for all of them, each
+    state's fit the one fit_null_reml gives it; on the CPU fit_null_reml
+    state by state."""
+    if not rots:
+        return []
+    r0 = rots[0]
+    if not all(_same(r.s, r0.s) and _same(r.PXX, r0.PXX) for r in rots[1:]):
+        raise ValueError("fit_null_reml_multi: the states do not share s and PXX")
+    if not r0.s.is_cuda:
+        return [fit_null_reml(r, low, high, tol, max_iter) for r in rots]
+    with trace.span("null_brent"):
+        return _fit_null_card(rots, low, high, tol, max_iter)
 
 
 def fit_null_reml_host(

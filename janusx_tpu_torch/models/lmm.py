@@ -45,6 +45,7 @@ from janusx_tpu_torch.core.reml import (
     final_grams_f32,
     final_stats_from_grams,
     fit_null_reml,
+    fit_null_reml_multi,
     grid_shared,
     lmm_grid_scan_with,
     make_grid,
@@ -389,11 +390,12 @@ def lmm_scan_multi(
     if grid_points is None:
         grid_points = config.knob("JX_TPU_GRID_POINTS")
     # per-trait rotations/null fits are SNP-independent: computed once and
-    # carried through the superblocks
+    # carried through the superblocks; the traits share s and PXX, so their
+    # null fits are one launch on a card
     if _prepared is None:
         states = [_scan_state(basis, Y[:, t].copy(), covariates, grid_points, dev)
                   for t in range(Y.shape[1])]
-        nulls = [fit_null_reml(rot) for rot, _, _ in states]
+        nulls = fit_null_reml_multi([rot for rot, _, _ in states])
     else:
         states, nulls = _prepared
     return _grid_scan(pg, basis, states, nulls, block, lmm2, superblock, dev,

@@ -22,11 +22,19 @@ the serial pass over the blocks; one counted launch per sweep):
 - G2 ``gibbs_sweep_block_mvn``: BayesA's joint draw of each marker block
   (``_gibbs_blocked_a``).
 
+One carries the null REML fit of the dense LMM, whose reference is an XLA
+loop with no Pallas (janusx_tpu/core/reml.py's fit_null_reml):
+
+- N1 ``null_reml_brent``: each trait's whole lockstep Brent over log10 λ
+  in one thread block, every trait of a launch at once (csrc/nullfit.cu).
+
 All are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
 ``build/janusx_tpu_torch/`` (keyed on a hash of the sources and flags) and
 bound with ``ctypes``. A wrapper takes its plain-PyTorch version only for
 tensors on the CPU (for G1 and G2 the plain mirror of the kernel's
-schedule); for a CUDA tensor it launches the kernel or raises.
+schedule); for a CUDA tensor it launches the kernel or raises. N1's plain
+version is core.reml's torch Brent, which core.reml.fit_null_reml takes for
+CPU states, so its wrapper takes CUDA tensors only.
 Each wrapper counts its kernel launches as ``launch.<wrapper>`` in
 utils.trace's table (``launch_counts``).
 """
@@ -36,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -52,7 +61,7 @@ from janusx_tpu_torch.utils import trace
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR.parent / "build" / "janusx_tpu_torch"
-_SOURCES = ("rotate.cu", "lattice.cu", "gibbs.cu")
+_SOURCES = ("rotate.cu", "lattice.cu", "gibbs.cu", "nullfit.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,7 +120,7 @@ def build() -> tuple[Path, float]:
 def _lib() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
     lib.jx_decode_rotate.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.jx_decode_rotate.restype = i
     lib.jx_grid_lattice.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p]
@@ -124,6 +133,10 @@ def _lib() -> ctypes.CDLL:
     lib.jx_gibbs_plan.restype = i
     lib.jx_gibbs_record_floats.argtypes = [i]
     lib.jx_gibbs_record_floats.restype = i
+    lib.jx_null_reml_workspace.argtypes = [i]
+    lib.jx_null_reml_workspace.restype = ctypes.c_longlong
+    lib.jx_null_reml_brent.argtypes = [p] * 6 + [i] * 3 + [d] * 3 + [i] + [d] * 3 + [p]
+    lib.jx_null_reml_brent.restype = i
     return lib
 
 
@@ -739,8 +752,57 @@ def gibbs_sweep_block_mvn(Zb: torch.Tensor, Gb: torch.Tensor, x2: torch.Tensor,
     trace.count("launch.gibbs_sweep_block_mvn")
 
 
+# ------------------------------------------------- N1 null REML Brent
+def null_reml_brent(s: torch.Tensor, PXX: torch.Tensor, PXy: torch.Tensor,
+                    Pyy: torch.Tensor, low: float = config.LOG10_LAMBDA_LOW,
+                    high: float = config.LOG10_LAMBDA_HIGH,
+                    tol: float = config.NULL_BRENT_TOL,
+                    max_iter: int = config.NULL_BRENT_MAX_ITER) -> torch.Tensor:
+    """The null REML fit of T traits that share the eigenvalues s (n,) and
+    the covariate products PXX (n, p²), from each trait's PXy (T, n, p) and
+    Pyy (T, n), all f64, contiguous and on one CUDA device
+    (core.reml.RotatedData's fields): brent_minimize_batched's Brent over
+    log10 λ in [low, high] on -REML, with ridge config.GRAM_RIDGE. Returns
+    (T, 3) f64 on the device: log10 λ, -REML and ML at it. Its plain
+    version is core.reml.fit_null_reml_plain, which core.reml.fit_null_reml
+    takes for states on the CPU; this wrapper takes CUDA tensors only."""
+    if s.dim() != 1 or PXy.dim() != 3:
+        raise ValueError(f"null_reml_brent: s {tuple(s.shape)}, PXy {tuple(PXy.shape)}")
+    T, n, p = PXy.shape
+    if (T < 1 or p < 1 or n <= p or s.shape != (n,) or PXX.shape != (n, p * p)
+            or Pyy.shape != (T, n)):
+        raise ValueError(f"null_reml_brent: s {tuple(s.shape)}, PXX {tuple(PXX.shape)}, "
+                         f"PXy {tuple(PXy.shape)}, Pyy {tuple(Pyy.shape)}")
+    dev = s.device
+    for t, name in ((s, "s"), (PXX, "PXX"), (PXy, "PXy"), (Pyy, "Pyy")):
+        if t.dtype != torch.float64 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"null_reml_brent: {name} must be a contiguous float64 tensor "
+                             f"on {dev}, got {t.dtype} on {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"null_reml_brent takes CUDA tensors, got {dev}; "
+                         f"core.reml.fit_null_reml_plain fits states on the CPU")
+    # the objectives' constants as core.reml computes them
+    nf, nfp = float(n), float(n - p)
+    c_reml = nfp * (math.log(nfp) - 1.0 - math.log(2.0 * math.pi)) / 2.0
+    c_ml = nf * (math.log(nf) - 1.0 - math.log(2.0 * math.pi)) / 2.0
+    out = torch.empty((T, 3), dtype=torch.float64, device=dev)
+    lib = _lib()
+    # past the p whose work buffers fit in shared memory, a workspace per lane
+    need = lib.jx_null_reml_workspace(p)
+    ws = torch.empty((T, need), dtype=torch.float64, device=dev) if need else None
+    with torch.cuda.device(dev):
+        err = lib.jx_null_reml_brent(
+            s.data_ptr(), PXX.data_ptr(), PXy.data_ptr(), Pyy.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), T, n, p, min(low, high), max(low, high),
+            max(abs(tol), 1e-12), int(max_iter), float(config.GRAM_RIDGE), c_reml, c_ml,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "null_reml_brent")
+    trace.count("launch.null_reml_brent")
+    return out
+
+
 _WRAPPERS = ("decode_rotate", "grid_neg_reml_lattice", "gibbs_sweep_marker",
-             "gibbs_sweep_block_mvn")
+             "gibbs_sweep_block_mvn", "null_reml_brent")
 
 
 def reset_launches() -> None:

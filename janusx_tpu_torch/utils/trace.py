@@ -22,8 +22,10 @@ Names in use: the spans of the scans (``fit_null``, ``rotate_y``,
 ``lr_rotate_y``, ``lr_null``, ``lr_basis``, ``lr_lattice``) and the stages
 of ``jx gwas``; the counters ``h2d_bytes`` (bytes copied from the host to a
 device), ``launch.<wrapper>`` (ops.kernels' launches), ``gamma.card`` /
-``gamma.host`` (GRAMMAR γ calibrations on the device / on the host) and
-``lowrank.superblocks`` (resident superblocks of the low-rank scan).
+``gamma.host`` (GRAMMAR γ calibrations on the device / on the host),
+``lowrank.superblocks`` (resident superblocks of the low-rank scan) and
+``null_fit.card`` / ``null_fit.plain`` (dense null REML fits through the
+null_reml_brent kernel, one per trait, / through the torch version).
 """
 
 from __future__ import annotations

@@ -330,6 +330,159 @@ def test_lmm_scan_multi_on_card_matches_single_trait_scans(dev):
         assert np.nanmax(dl) <= 5e-3
 
 
+# ------------------------------------------ N1 null_reml_brent (csrc/nullfit.cu)
+def _null_states(dev, n, p, T, kind="interior"):
+    """T rotated states sharing s and PXX on ``dev``: a GRM-like spectrum s,
+    a design Xr of an intercept-like column and p - 1 covariates, and each
+    lane's yr drawn with variance h² s + (1 - h²) ("interior"); s less
+    0.999e-3, a negative λ (the optimum at the interval's low end, "low");
+    |s| with the spectrum's three last eigenvalues negative, so that v <= 0
+    below λ = 1e-3 and the optimum sits just above it ("negative"); falling
+    with s (at the high end, "high"); or 0 (r'Wr = 0 at every λ,
+    "degenerate")."""
+    from janusx_tpu_torch.core.reml import RotatedData
+
+    rng = np.random.default_rng(10 * n + p)
+    s = np.sort(rng.gamma(0.6, 1.7, n))[::-1].copy() + 1e-3
+    if kind == "negative":
+        s[-3:] = [-1e-3, -2e-4, -5e-5]
+    Xr = rng.normal(size=(n, p))
+    Xr[:, 0] = 1.0 + 0.1 * Xr[:, 0]
+    h2 = rng.uniform(0.2, 0.8, T)
+    var = {"interior": lambda t: h2[t] * np.abs(s) + 1.0 - h2[t],
+           "negative": lambda t: np.abs(s),
+           "low": lambda t: s - 0.999e-3,
+           "high": lambda t: 2.0 - s / s.max(),
+           "degenerate": lambda t: np.zeros(n)}[kind]
+    PXX = (Xr[:, :, None] * Xr[:, None, :]).reshape(n, -1)
+    t64 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+    rots = []
+    for t in range(T):
+        yr = rng.normal(size=n) * np.sqrt(var(t))
+        rots.append(RotatedData(s=t64(s), Xr=t64(Xr), yr=t64(yr), PXX=t64(PXX),
+                                PXy=t64(Xr * yr[:, None]), Pyy=t64(yr * yr)))
+    return rots
+
+
+def _close_to_plain(got, rots):
+    """Each fit against the plain version's on the same device, which
+    differs from it only in the order of the f64 sums: at the kernel's log10
+    λ its -REML and ML within rel 1e-10 of the plain objective's there, its
+    -REML within rel 1e-10 of the plain fit's optimum, the 1e8 sentinel and
+    its -1e8 ML exactly; and log10 λ within 1e-6, the Brent's tolerance
+    (NULL_BRENT_TOL). Near the optimum -REML (~1e4 at n = 5,000) moves by
+    less than its f64 rounding (~1e-11) over ~1e-6 of log10 λ, so two sum
+    orders stop the Brent at two points of that flat stretch: the plain
+    version on the CPU and on the card differ by as much (up to 3e-7 on
+    these states, H100), and tests/test_torch_lmm.py holds the port to the
+    reference at the same 1e-6. ML, not flat there, is compared at the
+    kernel's own λ. Returns the plain fits."""
+    from janusx_tpu_torch.core import reml
+
+    want = [reml.fit_null_reml_plain(r) for r in rots]
+    for g, w, r in zip(got, want, rots):
+        assert abs(g.log10_lbd - w.log10_lbd) <= 1e-6, (g, w)
+        x = torch.tensor([g.log10_lbd], dtype=torch.float64, device=r.s.device)
+        at = (-float(reml.neg_reml_null(x, r)[0]), float(reml.ml_null(x, r)[0]))
+        if w.reml == -1e8:
+            assert (g.reml, g.ml) == (w.reml, w.ml) == at
+        else:
+            assert g.reml == pytest.approx(at[0], rel=1e-10)
+            assert g.ml == pytest.approx(at[1], rel=1e-10)
+            assert g.reml == pytest.approx(w.reml, rel=1e-10)
+    return want
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("n", [96, 1410, 5000])
+@pytest.mark.parametrize("p", [1, 3, 12])
+def test_null_reml_brent_matches_plain(dev, p, n, lanes):
+    from janusx_tpu_torch.core import reml
+
+    rots = _null_states(dev, n, p, lanes)
+    got = reml.fit_null_reml_multi(rots) if lanes > 1 else [reml.fit_null_reml(rots[0])]
+    want = _close_to_plain(got, rots)
+    assert all(-5.0 < w.log10_lbd < 5.0 for w in want)
+
+
+@pytest.mark.parametrize("kind", ["negative", "low", "high", "degenerate"])
+def test_null_reml_brent_edge_cases_match_plain(dev, kind):
+    """v <= 0 below λ = 1e-3; the optimum at each end of [-5, 5]; r'Wr =
+    0, where every evaluation is the sentinel, as in the plain version."""
+    from janusx_tpu_torch.core import reml
+
+    rots = _null_states(dev, 1410, 3, 4, kind)
+    want = _close_to_plain(reml.fit_null_reml_multi(rots), rots)
+    x = [w.log10_lbd for w in want]
+    if kind == "negative":
+        assert all(-3.0 < v < -2.8 for v in x)
+    elif kind == "low":
+        assert all(v < -4.99 for v in x)
+    elif kind == "high":
+        assert all(v > 4.99 for v in x)
+    else:
+        assert all(w.reml == -1e8 and w.ml == -1e8 for w in want)
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_null_reml_brent_lane_equals_its_single_launch(dev, p):
+    """A lane's fit does not depend on the other lanes of its launch."""
+    from janusx_tpu_torch.core import reml
+
+    rots = _null_states(dev, 1410, p, 4)
+    assert reml.fit_null_reml_multi(rots) == [reml.fit_null_reml(r) for r in rots]
+
+
+def test_null_reml_brent_one_launch_per_fit(dev):
+    """One launch per fit_null_reml or fit_null_reml_multi call, its
+    traits counted under null_fit.card and none under null_fit.plain."""
+    from janusx_tpu_torch.core import reml
+    from janusx_tpu_torch.utils import trace
+
+    rots = _null_states(dev, 1410, 1, 4)
+    kernels.reset_launches()
+    trace.reset("null_fit.")
+    reml.fit_null_reml(rots[0])
+    assert kernels.launch_counts()["null_reml_brent"] == 1
+    reml.fit_null_reml_multi(rots)
+    assert kernels.launch_counts()["null_reml_brent"] == 2
+    assert trace.counts().get("null_fit.card") == 5
+    assert "null_fit.plain" not in trace.counts()
+
+
+@pytest.mark.parametrize("p", [119, 120])
+def test_null_reml_brent_past_shared_memory(dev, p):
+    """At p = 119 a lane's sums, Cholesky factor and solve fill the block's
+    shared memory; from p = 120 they lie in a global workspace of the
+    lane's own. Either way one launch fits both lanes, as close to the
+    plain version as at small p."""
+    from janusx_tpu_torch.core import reml
+    from janusx_tpu_torch.utils import trace
+
+    assert (kernels._lib().jx_null_reml_workspace(p) > 0) == (p > 119)
+    rots = _null_states(dev, 400, p, 2)
+    kernels.reset_launches()
+    trace.reset("null_fit.")
+    got = reml.fit_null_reml_multi(rots)
+    assert kernels.launch_counts()["null_reml_brent"] == 1
+    assert trace.counts().get("null_fit.card") == 2
+    want = _close_to_plain(got, rots)
+    assert all(-5.0 < w.log10_lbd < 5.0 for w in want)
+
+
+def test_null_reml_brent_states_not_shared_raise_before_any_launch(dev):
+    """fit_null_reml_multi on states whose s differ: ValueError, no launch."""
+    from janusx_tpu_torch.core import reml
+
+    rots = _null_states(dev, 1410, 1, 2)
+    odd = rots[1]._replace(s=rots[1].s.clone().index_fill_(0, torch.tensor([7], device=dev),
+                                                           2.0))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="do not share s and PXX"):
+        reml.fit_null_reml_multi([rots[0], odd])
+    assert kernels.launch_counts()["null_reml_brent"] == 0
+
+
 @pytest.mark.parametrize("prec", ["highest", "high"])
 def test_kernels_take_rows_beyond_one_grid_axis_of_65535_blocks(dev, prec):
     """SNP rows map to the grid's x axis, so one launch covers a whole

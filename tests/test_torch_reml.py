@@ -234,3 +234,125 @@ def test_snp_objective_pieces_match(problem):
     lg_t = treml.lmm_grid_scan(rot_t, torch.from_numpy(Gr32), treml.make_grid(G, "cpu")).numpy()
     np.testing.assert_allclose(lg_t, lg_j, atol=2.02 * 10.0 / (G - 1))
     assert np.mean(np.abs(lg_t - lg_j) < 1e-6) > 0.5
+
+
+# ------------------------------------- the null fit's kernel (null_reml_brent)
+def _shared_states(p, T=3, n=120, seed=11):
+    """T traits on one basis and one covariate set: rotated states that
+    share s and PXX, as lmm_scan_multi's traits do."""
+    rng = np.random.default_rng(seed)
+    g = rng.binomial(2, 0.3, size=(400, n)).astype(np.float64)
+    gc = g - g.mean(axis=1, keepdims=True)
+    basis = interop.basis_from_numpy(eigh_grm(gc.T @ gc / 400, diag_ridge=1e-6))
+    cov = rng.normal(size=(n, p - 1)) if p > 1 else None
+    Y = 2.0 + gc[:30].T @ rng.normal(0, 0.2, (30, T)) + rng.normal(size=(n, T))
+    return [treml.make_rotated(basis, Y[:, t], cov, device="cpu") for t in range(T)]
+
+
+def _operands(rot, T):
+    return rot.s, rot.PXX, torch.stack([rot.PXy] * T), torch.stack([rot.Pyy] * T)
+
+
+def test_fit_null_reml_on_cpu_is_the_plain_version(problem):
+    """CPU tensors take the torch Brent, bit for bit, counted under
+    null_fit.plain and never under null_fit.card."""
+    from janusx_tpu_torch.ops import kernels
+    from janusx_tpu_torch.utils import trace
+
+    _, rot_t, _ = problem
+    trace.reset("null_fit.")
+    kernels.reset_launches()
+    got = treml.fit_null_reml(rot_t)
+    assert trace.counts()["null_fit.plain"] == 1
+    assert "null_fit.card" not in trace.counts()
+    assert kernels.launch_counts()["null_reml_brent"] == 0
+    assert got == treml.fit_null_reml_plain(rot_t)
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_fit_null_reml_multi_equals_per_trait_fits(p):
+    rots = _shared_states(p)
+    assert treml.fit_null_reml_multi(rots) == [treml.fit_null_reml(r) for r in rots]
+    assert treml.fit_null_reml_multi([]) == []
+
+
+@pytest.mark.parametrize("odd", ["s", "PXX", "n", "dtype"])
+def test_fit_null_reml_multi_rejects_states_that_do_not_share_s_and_pxx(odd):
+    """fit_null_reml_multi holds every state to the first one's s and PXX
+    (its launch on a card reads only the first's), on any device."""
+    from janusx_tpu_torch.utils import trace
+
+    rots = _shared_states(3)
+    r = rots[1]
+    if odd == "s":
+        r = r._replace(s=r.s * (1.0 + 1e-12))
+    elif odd == "PXX":
+        r = r._replace(PXX=r.PXX.clone().index_fill_(0, torch.tensor([5]), 0.0))
+    elif odd == "n":
+        r = _shared_states(3, n=119)[1]
+    else:
+        r = r._replace(s=r.s.float())
+    trace.reset("null_fit.")
+    with pytest.raises(ValueError, match="do not share s and PXX"):
+        treml.fit_null_reml_multi([rots[0], r, rots[2]])
+    assert "null_fit.plain" not in trace.counts()
+
+
+@pytest.mark.parametrize("case", ["n", "p", "lanes", "n_le_p", "dtype", "device", "layout",
+                                  "cpu"])
+def test_null_reml_brent_rejects_operands_before_any_launch(problem, case):
+    """Operands that do not fit together raise before any launch, and so
+    do CPU tensors, whose plain fit core.reml.fit_null_reml takes."""
+    from janusx_tpu_torch.ops import kernels
+
+    _, rot_t, _ = problem
+    s, PXX, PXy, Pyy = _operands(rot_t, 2)
+    T, n, p = PXy.shape
+    if case == "n":
+        s = s[:-1]
+    elif case == "p":
+        PXX = torch.zeros((n, p * p + 1), dtype=torch.float64)
+    elif case == "lanes":
+        Pyy = Pyy[:1]
+    elif case == "n_le_p":
+        s, PXX, PXy, Pyy = s[:p], PXX[:p], PXy[:, :p].contiguous(), Pyy[:, :p].contiguous()
+    elif case == "dtype":
+        Pyy = Pyy.float()
+    elif case == "device":
+        PXy = torch.empty(PXy.shape, dtype=torch.float64, device="meta")
+    elif case == "layout":
+        PXy = torch.zeros((T, n, 2 * p), dtype=torch.float64)[:, :, ::2]
+    kernels.reset_launches()
+    with pytest.raises(ValueError) as err:
+        kernels.null_reml_brent(s, PXX, PXy, Pyy)
+    assert ("takes CUDA tensors" in str(err.value)) == (case == "cpu"), err.value
+    assert kernels.launch_counts()["null_reml_brent"] == 0
+
+
+def test_lmm_scan_multi_on_cpu_gives_the_per_trait_nulls():
+    """lmm_scan_multi's null fits on the CPU: each trait's plain fit of
+    its own rotated state, as before the fits of a step became one call."""
+    from janusx_tpu_torch.core.spectral import eigh_grm as t_eigh
+    from janusx_tpu_torch.io.gdata import GenotypeData, SiteInfo
+    from janusx_tpu_torch.io.packed import QcParams, pack_genotypes
+    from janusx_tpu_torch.models import lmm
+    from janusx_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(21)
+    m, n, T = 600, 150, 3
+    g = rng.binomial(2, rng.uniform(0.05, 0.5, m)[:, None], size=(m, n)).astype(np.int8)
+    site = dict(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
+                snp=np.array([f"rs{i}" for i in range(m)], object),
+                allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+    pg = pack_genotypes(GenotypeData(g, SiteInfo(**site), np.array(
+        [f"i{j}" for j in range(n)], object)), QcParams())
+    gc = pg.centered()
+    basis = t_eigh(gc.T @ gc / pg.m, diag_ridge=1e-6)
+    Y = 1.0 + gc.T @ rng.normal(0, 0.03, (pg.m, T)) + rng.normal(size=(n, T))
+    cov = rng.normal(size=(n, 2))
+    trace.reset("null_fit.")
+    _, nulls = lmm.lmm_scan_multi(pg, basis, Y, cov, block=256, device="cpu")
+    assert trace.counts()["null_fit.plain"] == T
+    want = [treml.fit_null_reml_plain(treml.make_rotated(basis, Y[:, t], cov, device="cpu"))
+            for t in range(T)]
+    assert nulls == want
