@@ -1,6 +1,10 @@
 """Spectral-scale REML/ML machinery, batched over SNPs (port of
 janusx_tpu/core/reml.py: the grid-scan and null-fit halves).
 
+Once per design, (basis, covariates, device), and held by all its traits:
+s, Xr and PXX (``make_rotated``), the grid's weights and covariate algebra
+(``grid_shared``). Per trait: yr, PXy, Pyy and the grid's y side.
+
 For eigenvalues s, rotated design Xr (n, p) (intercept included), rotated
 phenotype yr and rotated SNP rows Gr (B, n), each λ evaluation needs only
 weighted sums over the sample axis with weights w = 1/(s + λ):
@@ -30,7 +34,7 @@ from janusx_tpu_torch.core.spectral import SpectralBasis
 from janusx_tpu_torch.ops import kernels
 from janusx_tpu_torch.ops.brent import brent_minimize_batched
 from janusx_tpu_torch.ops.kernels import neg_reml_closed_form
-from janusx_tpu_torch.utils import trace
+from janusx_tpu_torch.utils import devcache, trace
 
 _BAD = 1e8  # reference sentinel: invalid loglik = -1e8
 f32, f64 = torch.float32, torch.float64
@@ -65,21 +69,25 @@ def make_rotated(basis: SpectralBasis, y: np.ndarray, X_cov: np.ndarray | None,
     that keeps the f32 per-SNP grams from losing precision to a large
     phenotype mean (janusx_tpu/core/reml.py:79-90)."""
     dev = config.resolve_device(device)
-    n = basis.n
-    ones = np.ones((n, 1), dtype=np.float64)
-    X = ones if X_cov is None else np.concatenate([ones, np.asarray(X_cov, np.float64)], axis=1)
+    t = lambda a: trace.uploaded(torch.as_tensor(np.ascontiguousarray(a), dtype=f64,
+                                                 device=dev))
+
+    def design():  # cached on basis.U under the covariates' digest
+        n = basis.n
+        ones = np.ones((n, 1), dtype=np.float64)
+        X = ones if X_cov is None else np.concatenate([ones, np.asarray(X_cov, np.float64)],
+                                                      axis=1)
+        Xr = basis.U.T @ X
+        return X, Xr, t(basis.S), t(Xr), t((Xr[:, :, None] * Xr[:, None, :]).reshape(n, -1))
+
+    X, Xr, s, Xr_d, PXX = devcache.derived(basis.U, ("reml.design", devcache.digest(X_cov)),
+                                           dev, design)
     y = np.asarray(y, np.float64).reshape(-1)
     c, *_ = np.linalg.lstsq(X, y, rcond=None)
     y = y - X @ c
-    Xr = basis.U.T @ X
     yr = basis.U.T @ y
-    PXX = (Xr[:, :, None] * Xr[:, None, :]).reshape(n, -1)
-    PXy = Xr * yr[:, None]
-    Pyy = yr * yr
-    t = lambda a: trace.uploaded(torch.as_tensor(np.ascontiguousarray(a), dtype=f64,
-                                                 device=dev))
-    return RotatedData(s=t(basis.S), Xr=t(Xr), yr=t(yr), PXX=t(PXX),
-                       PXy=t(PXy), Pyy=t(Pyy))
+    return RotatedData(s=s, Xr=Xr_d, yr=t(yr), PXX=PXX, PXy=t(Xr * yr[:, None]),
+                       Pyy=t(yr * yr))
 
 
 def _chol_pieces(M_ridged: torch.Tensor, rhs: torch.Tensor):
@@ -172,8 +180,8 @@ def beta_se_snp_batch(log10_lbd: torch.Tensor, rot: RotatedData, Gr: torch.Tenso
 
 # ------------------------------------------------------------- grid scan
 class GridShared(NamedTuple):
-    """λ-grid quantities independent of the SNP block (computed once per
-    trait and reused by every block)."""
+    """λ-grid quantities independent of the SNP block (axy32, ayy32 and
+    Ainv_axy32 are the trait's, the rest its design's)."""
 
     grid_lg: torch.Tensor  # (G,) f64
     w32: torch.Tensor  # (G, n) f32 weights
@@ -194,31 +202,42 @@ def make_grid(grid_points: int, device=None) -> torch.Tensor:
 
 
 def grid_shared(rot: RotatedData, grid_lg: torch.Tensor) -> GridShared:
-    p = rot.p
-    G = grid_lg.shape[0]
-    lbd = torch.pow(10.0, grid_lg)
-    v = rot.s[None, :] + lbd[:, None]  # (G, n) f64
-    w64 = 1.0 / v
-    logdetV = torch.sum(torch.log(v), dim=-1)
-    Axx = (w64 @ rot.PXX).reshape(G, p, p)
+    """One trait's grid pieces. The design's half, (s, w64, Ar_inv,
+    GridShared without the trait's fields), is cached on rot.PXX."""
+
+    def design():
+        p = rot.p
+        G = grid_lg.shape[0]
+        lbd = torch.pow(10.0, grid_lg)
+        v = rot.s[None, :] + lbd[:, None]  # (G, n) f64
+        w64 = 1.0 / v
+        logdetV = torch.sum(torch.log(v), dim=-1)
+        Axx = (w64 @ rot.PXX).reshape(G, p, p)
+        Ar = Axx + config.GRAM_RIDGE * torch.eye(p, dtype=f64, device=Axx.device)
+        L, info = torch.linalg.cholesky_ex(Ar)
+        # a grid point whose Ar is not positive definite (an indefinite kinship,
+        # below its most negative eigenvalue) gives NaN as jnp.linalg.cholesky
+        # does, and its lattice cells score +inf
+        L = torch.where((info != 0)[:, None, None], torch.full_like(L, float("nan")), L)
+        logdetAr = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+        eyeP = torch.eye(p, dtype=f64, device=Ar.device).expand(G, p, p)
+        Ar_inv = torch.cholesky_solve(eyeP, L)
+        return rot.s, w64, Ar_inv, GridShared(
+            grid_lg=grid_lg, w32=w64.to(f32), logdetV32=logdetV.to(f32),
+            Axx32=Axx.to(f32), axy32=None, ayy32=None,
+            Ar_inv32=Ar_inv.to(f32), Ainv_axy32=None,
+            logdetAr32=logdetAr.to(f32),
+        )
+
+    tag = ("reml.grid", devcache.digest(grid_lg.cpu().numpy()))
+    s, w64, Ar_inv, sh = devcache.derived(rot.PXX, tag, rot.s.device, design)
+    if s is not rot.s:  # a state built by hand on another s
+        s, w64, Ar_inv, sh = design()
     axy = w64 @ rot.PXy
     ayy = w64 @ rot.Pyy
-    Ar = Axx + config.GRAM_RIDGE * torch.eye(p, dtype=f64, device=Axx.device)
-    L, info = torch.linalg.cholesky_ex(Ar)
-    # a grid point whose Ar is not positive definite (an indefinite kinship,
-    # below its most negative eigenvalue) gives NaN as jnp.linalg.cholesky
-    # does, and its lattice cells score +inf
-    L = torch.where((info != 0)[:, None, None], torch.full_like(L, float("nan")), L)
-    logdetAr = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
-    eyeP = torch.eye(p, dtype=f64, device=Ar.device).expand(G, p, p)
-    Ar_inv = torch.cholesky_solve(eyeP, L)
     Ainv_axy = torch.einsum("gpq,gq->gp", Ar_inv, axy)
-    return GridShared(
-        grid_lg=grid_lg, w32=w64.to(f32), logdetV32=logdetV.to(f32),
-        Axx32=Axx.to(f32), axy32=axy.to(f32), ayy32=ayy.to(f32),
-        Ar_inv32=Ar_inv.to(f32), Ainv_axy32=Ainv_axy.to(f32),
-        logdetAr32=logdetAr.to(f32),
-    )
+    return sh._replace(grid_lg=grid_lg, axy32=axy.to(f32), ayy32=ayy.to(f32),
+                       Ainv_axy32=Ainv_axy.to(f32))
 
 
 def grid_argmin_schur(sh: GridShared, agg, agy, axg, n: int):
@@ -440,11 +459,8 @@ def _fit_null_card(rots, low, high, tol, max_iter) -> list[NullFit]:
     """One null_reml_brent launch for every state of ``rots`` (one copy of
     its (T, 3) result to the host); counts ``null_fit.card`` per state."""
     r0 = rots[0]
-    if len(rots) == 1:
-        PXy, Pyy = r0.PXy[None], r0.Pyy[None]
-    else:
-        PXy = torch.stack([r.PXy for r in rots])
-        Pyy = torch.stack([r.Pyy for r in rots])
+    PXy = torch.stack([r.PXy for r in rots])
+    Pyy = torch.stack([r.Pyy for r in rots])
     out = kernels.null_reml_brent(r0.s, r0.PXX, PXy, Pyy, low, high, tol, max_iter).tolist()
     trace.count("null_fit.card", len(rots))
     return [NullFit(lbd=10.0 ** x, log10_lbd=x, reml=-f, ml=ml) for x, f, ml in out]
@@ -478,8 +494,8 @@ def fit_null_reml_multi(
     max_iter: int = config.NULL_BRENT_MAX_ITER,
 ) -> list[NullFit]:
     """fit_null_reml of each rotated state, for states that share s and
-    PXX (traits on one sample mask, basis and covariates; ValueError
-    otherwise): on a card one null_reml_brent launch for all of them, each
+    PXX (traits of one design share the objects; ValueError otherwise):
+    on a card one null_reml_brent launch for all of them, each
     state's fit the one fit_null_reml gives it; on the CPU fit_null_reml
     state by state."""
     if not rots:

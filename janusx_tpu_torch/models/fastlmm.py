@@ -40,14 +40,18 @@ route's, models.lmm.lattice_superblock, since it holds Gr (m, k <= n)):
 - beta/se (and the ML loglik for lmm2) at each λ*: f32 grams, then the
   small (p+1) Schur algebra in f64 (``_final_stats_lr``).
 
+Once per design, (basis, covariates): U'X and its products, and per device
+the grid's covariate pieces and the constants (``_grid_shared_lr``,
+``_lr_consts``). Per trait: U'y, y's products and the grid's y side.
+
 Spans (utils.trace): ``lowrank_scan``, the route; ``lr_rotate_y``, the
-host's rotated design; ``lr_null``, the host null fit and the switch test;
+host's rotated state; ``lr_null``, the host null fit and the switch test;
 ``lr_basis``, the basis (set-up); ``lr_lattice``, a superblock's lattice
 and epilogue after its rotation; inside the route the shared ``feed``,
 ``superblock``, ``upload``, ``kernels``, ``to_host`` and ``results``.
 Counter ``lowrank.superblocks``: one per resident superblock scanned. The
-per-trait operands of the grid and the constants count under
-``h2d_bytes``.
+operands of the grid and the constants count under ``h2d_bytes`` as they
+go up (the design's once).
 """
 
 from __future__ import annotations
@@ -197,11 +201,19 @@ def make_rotated_lr(
     lrb: LowRankBasis, y: np.ndarray, X_cov: np.ndarray | None
 ) -> RotatedLR:
     n = lrb.n
+
+    def design():  # cached on lrb.U under the covariates' digest
+        ones = np.ones((n, 1), np.float64)
+        X = ones if X_cov is None else np.concatenate(
+            [ones, np.asarray(X_cov, np.float64)], axis=1
+        )
+        Xr = lrb.U.T @ X  # (k, p)
+        PXX = (Xr[:, :, None] * Xr[:, None, :]).reshape(Xr.shape[0], -1)
+        return lrb.S + lrb.ridge, X, Xr, PXX, X.T @ X - Xr.T @ Xr
+
+    S, X, Xr, PXX, cXX = devcache.derived(
+        lrb.U, ("lr.design", lrb.ridge, devcache.digest(X_cov)), "host", design)
     y = np.asarray(y, np.float64).reshape(-1)
-    ones = np.ones((n, 1), np.float64)
-    X = ones if X_cov is None else np.concatenate(
-        [ones, np.asarray(X_cov, np.float64)], axis=1
-    )
     # Exact reparameterization: subtract the f64 OLS projection of y onto
     # span(X) BEFORE building the rotated and complement pieces. REML/ML
     # values, λ and every per-SNP statistic are invariant (GLS effects are
@@ -212,17 +224,15 @@ def make_rotated_lr(
     # round-5 metamorphic fix, fastlmm.py:170-181).
     c, *_ = np.linalg.lstsq(X, y, rcond=None)
     y = y - X @ c
-    Xr = lrb.U.T @ X  # (k, p)
     yr = lrb.U.T @ y
-    k = Xr.shape[0]
     return RotatedLR(
-        S=lrb.S + lrb.ridge,
+        S=S,
         Xr=Xr,
         yr=yr,
-        PXX=(Xr[:, :, None] * Xr[:, None, :]).reshape(k, -1),
+        PXX=PXX,
         PXy=Xr * yr[:, None],
         Pyy=yr * yr,
-        cXX=X.T @ X - Xr.T @ Xr,
+        cXX=cXX,
         cXy=X.T @ y - Xr.T @ yr,
         cyy=float(y @ y - yr @ yr),
         X=X,
@@ -345,37 +355,45 @@ def _grid_shared_lr(rot: RotatedLR, grid_lg: np.ndarray,
     agy by ``ysc`` in ``_lr_rows``), which scales each cell's r'V⁻¹r by
     1/y'V⁻¹y, and (n-p-1)·log(y'V⁻¹y) is added to log|V| in f64, less its
     minimum over the grid: each cell's -REML less a constant, with terms
-    of O(1) near the optimum."""
-    p = rot.p
-    G = len(grid_lg)
-    lbd = 10.0 ** grid_lg
-    v = rot.S[None, :] + lbd[:, None]  # (G, k)
-    v0 = rot.ridge + lbd  # (G,)
-    w = 1.0 / v
-    w0 = 1.0 / v0
-    logdetV = np.sum(np.log(v), axis=1) + (rot.n - rot.k) * np.log(v0)
-    Axx = (w @ rot.PXX).reshape(G, p, p) + w0[:, None, None] * rot.cXX
+    of O(1) near the optimum. The design's half is cached on rot.PXX."""
+    t32 = lambda a: trace.uploaded(torch.as_tensor(a, dtype=f32, device=dev))
+
+    def design():  # (w, w0, log|V| before y's term, Ar_inv, GridShared part)
+        p = rot.p
+        G = len(grid_lg)
+        lbd = 10.0 ** grid_lg
+        v = rot.S[None, :] + lbd[:, None]  # (G, k)
+        v0 = rot.ridge + lbd  # (G,)
+        w = 1.0 / v
+        w0 = 1.0 / v0
+        logdetV = np.sum(np.log(v), axis=1) + (rot.n - rot.k) * np.log(v0)
+        Axx = (w @ rot.PXX).reshape(G, p, p) + w0[:, None, None] * rot.cXX
+        Ar = Axx + config.GRAM_RIDGE * np.eye(p)
+        try:
+            L = np.linalg.cholesky(Ar)
+        except np.linalg.LinAlgError as e:
+            raise ValueError(
+                "low-rank grid setup failed: covariate Gram is not positive"
+                " definite on the λ grid (collinear or constant covariates?)"
+            ) from e
+        logdetAr = 2.0 * np.sum(np.log(np.diagonal(L, axis1=-2, axis2=-1)), axis=-1)
+        Ar_inv = np.linalg.inv(Ar)
+        return w, w0, logdetV, Ar_inv, GridShared(
+            grid_lg=trace.uploaded(torch.as_tensor(grid_lg, dtype=f64, device=dev)),
+            w32=t32(w), logdetV32=None, Axx32=t32(Axx), axy32=None, ayy32=None,
+            Ar_inv32=t32(Ar_inv), Ainv_axy32=None, logdetAr32=t32(logdetAr),
+        )
+
+    w, w0, logdetV, Ar_inv, sh = devcache.derived(
+        rot.PXX, ("lr.grid", devcache.digest(grid_lg)), dev, design)
     axy = w @ rot.PXy + w0[:, None] * rot.cXy
     ayy = w @ rot.Pyy + w0 * rot.cyy
-    Ar = Axx + config.GRAM_RIDGE * np.eye(p)
-    try:
-        L = np.linalg.cholesky(Ar)
-    except np.linalg.LinAlgError as e:
-        raise ValueError(
-            "low-rank grid setup failed: covariate Gram is not positive"
-            " definite on the λ grid (collinear or constant covariates?)"
-        ) from e
-    logdetAr = 2.0 * np.sum(np.log(np.diagonal(L, axis1=-2, axis2=-1)), axis=-1)
-    Ar_inv = np.linalg.inv(Ar)
     Ainv_axy = np.einsum("gpq,gq->gp", Ar_inv, axy)
     ysc = 1.0 / np.sqrt(ayy)
-    logdetV = logdetV + (rot.n - p - 1) * np.log(ayy)
-    t32 = lambda a: trace.uploaded(torch.as_tensor(a, dtype=f32, device=dev))
-    sh = GridShared(
-        grid_lg=trace.uploaded(torch.as_tensor(grid_lg, dtype=f64, device=dev)),
-        w32=t32(w), logdetV32=t32(logdetV - logdetV.min()), Axx32=t32(Axx),
-        axy32=t32(axy * ysc[:, None]), ayy32=t32(np.ones(G)), Ar_inv32=t32(Ar_inv),
-        Ainv_axy32=t32(Ainv_axy * ysc[:, None]), logdetAr32=t32(logdetAr),
+    logdetV = logdetV + (rot.n - rot.p - 1) * np.log(ayy)
+    sh = sh._replace(
+        logdetV32=t32(logdetV - logdetV.min()), axy32=t32(axy * ysc[:, None]),
+        ayy32=t32(np.ones(len(grid_lg))), Ainv_axy32=t32(Ainv_axy * ysc[:, None]),
     )
     return sh, t32(ysc)
 
@@ -440,10 +458,14 @@ class _LrConsts(NamedTuple):
 def _lr_consts(rot: RotatedLR, Uk: torch.Tensor, dev) -> _LrConsts:
     t = lambda a, dt: trace.uploaded(torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                                      device=dev))
+    # the design's, cached on X: an f64 upload to the CPU shares its array
+    X, Xr, S64, PXX64, cXX64 = devcache.derived(
+        rot.X, "lr.consts", dev, lambda: (t(rot.X, f32), t(rot.Xr, f32), t(rot.S, f64),
+                                          t(rot.PXX, f64), t(rot.cXX, f64)))
     return _LrConsts(
-        Uk=Uk, X=t(rot.X, f32), y=t(rot.y, f32), Xr=t(rot.Xr, f32), yr=t(rot.yr, f32),
-        S64=t(rot.S, f64), PXX64=t(rot.PXX, f64), PXy64=t(rot.PXy, f64),
-        Pyy64=t(rot.Pyy, f64), cXX64=t(rot.cXX, f64), cXy64=t(rot.cXy, f64),
+        Uk=Uk, X=X, y=t(rot.y, f32), Xr=Xr, yr=t(rot.yr, f32),
+        S64=S64, PXX64=PXX64, PXy64=t(rot.PXy, f64),
+        Pyy64=t(rot.Pyy, f64), cXX64=cXX64, cXy64=t(rot.cXy, f64),
         cyy64=float(rot.cyy), ridge64=float(rot.ridge),
     )
 
@@ -579,8 +601,8 @@ def fastlmm_scan(
 
     ``rot``/``null`` accept a precomputed rotation and null fit (the
     workflow computes both for the LMM->LM switch). The grid-shared state
-    and the (n, k) Uk upload are made once per call (one trait) and carried
-    through every superblock. With ``mesh`` each shard scans its slice of
+    and the constants (the design's once) are carried through every
+    superblock. With ``mesh`` each shard scans its slice of
     every superblock, K1 at N = k per shard (janusx_tpu's _lr_scan_sharded)."""
     if model not in GENETIC_MODELS:
         raise ValueError(f"unknown genetic model: {model}")

@@ -22,6 +22,10 @@ superblock: each shard launches K1 and K2 on its slice on its own device
 (janusx_tpu's ``shard_map`` scans, lmm.py:241, 633); brent runs on one
 device, as the reference's does.
 
+What no trait changes is built once per design, (basis, covariates,
+device), in core.reml, and K2's split W here; ``_scan_state`` caches a
+trait's own pieces. The T traits of ``lmm_scan_multi`` share one design.
+
 Spans (utils.trace): ``fit_null``; ``rotate_y``, a trait's rotated state,
 made once; ``lmm_scan``, the route; ``results``, a chunk's host epilogue.
 models.superblocks opens the chunks' own.
@@ -29,7 +33,6 @@ models.superblocks opens the chunks' own.
 
 from __future__ import annotations
 
-import hashlib
 import weakref
 
 import numpy as np
@@ -86,12 +89,13 @@ def _lattice_operands(sh, rot: RotatedData):
 
 def _lattice_operands_multi(shs, rots):
     """The kernel's operands for T traits that share the eigenbasis, the
-    covariates and the grid: W (G, n) and the Xr rows are the same for
-    every trait; YX (T + p, n) stacks the T yr rows over the Xr rows, SH
-    (T, R, G) each trait's rows."""
-    ops = [_lattice_operands(sh, rot) for sh, rot in zip(shs, rots)]
-    YX = torch.cat([torch.stack([o[1][0] for o in ops]), ops[0][1][1:]]).contiguous()
-    return ops[0][0], YX, torch.stack([o[2] for o in ops])
+    covariates and the grid. W (G, n) and the Xr rows are trait 0's: on
+    the main path the design's, one set of objects (core.reml); states
+    carried in from elsewhere must hold equal values. YX (T + p, n) stacks
+    the T yr rows over the Xr rows, SH (T, R, G) each trait's rows."""
+    YX = torch.cat([torch.stack([rot.yr for rot in rots]), rots[0].Xr.T]).to(f32)
+    SH = torch.stack([_lattice_operands(sh, rot)[2] for sh, rot in zip(shs, rots)])
+    return shs[0].w32.contiguous(), YX.contiguous(), SH
 
 
 def lattice_superblock(n: int, grid_points: int, block: int,
@@ -166,17 +170,6 @@ def _result(pg, null: NullFit, beta, se, pwald, ssq, lmm2: bool, lbd, ml) -> Sca
                       pwald=pwald, extras={"lambda_null": null.lbd})
 
 
-def _upload(pg, basis: SpectralBasis, block: int, dev):
-    """Device operands of a resident chunk: packed rows (nblk, block, nb),
-    means (nblk, block), U f32 and K1's bf16 pieces of U."""
-    m = pg.m
-    nblk = -(-m // block)
-    with trace.span("upload"):
-        pk = devcache.device_packed_blocks(pg, (nblk, block), dev)
-        mn = devcache.to_device_blocks(pg.mean, (nblk, block), 0.0, f32, dev)
-        return (pk, mn) + _basis_operands(basis, dev)
-
-
 def _basis_operands(basis: SpectralBasis, dev):
     """U f32 and K1's bf16 pieces of U, made once per basis and device (the
     shards of one device share them)."""
@@ -202,9 +195,10 @@ def _grid_scan(pg, basis: SpectralBasis, states, nulls, block: int, lmm2: bool,
     lattice = None
     if rots[0].p <= _LATTICE_MAX_P:
         # K2's operands, the same for every superblock: W's bf16 pieces
-        # (the card's B operand) are split once per scan
+        # (the card's B operand) are split once per design, grid and device
         W, YX, SH = _lattice_operands_multi(shs, rots)
-        lattice = (W, YX, SH, kernels.split_w(W))
+        lattice = (W, YX, SH, devcache.derived(W, "w_split", W.device,
+                                               lambda: kernels.split_w(W)))
     reps = replicas((rots, shs, lattice), mesh)
 
     def compute(i, pk, mn, d):
@@ -247,16 +241,15 @@ def _brent_scan(pg, basis: SpectralBasis, rot: RotatedData, null: NullFit,
     """Per-SNP lockstep Brent, one SNP block at a time (the reference's
     cross-check path, janusx_tpu/models/lmm.py:51-73, 482-507)."""
     block = min(block, pg.m) if pg.m else block
+    init = torch.full((block,), null.log10_lbd, dtype=f64, device=dev)
 
-    def chunk(pg):
-        m = pg.m
-        pk, mn, U32, U_split = _upload(pg, basis, block, dev)
-        init = torch.full((block,), null.log10_lbd, dtype=f64, device=dev)
+    def compute(i, pk, mn, d):
+        U32, U_split = _basis_operands(basis, d)
         parts = []
-        for i in range(pk.shape[0]):
+        for b in range(pk.shape[0]):
             # K1 computes the reference's f32 decode @ U (HIGHEST); the
             # objective is f64
-            Gr = kernels.decode_rotate(pk[i], mn[i], U32, U_split=U_split).to(f64)
+            Gr = kernels.decode_rotate(pk[b], mn[b], U32, U_split=U_split).to(f64)
             lgs, _ = brent_minimize_batched(
                 lambda lg: neg_reml_snp_batch(lg, rot, Gr),
                 config.LOG10_LAMBDA_LOW, config.LOG10_LAMBDA_HIGH,
@@ -264,7 +257,10 @@ def _brent_scan(pg, basis: SpectralBasis, rot: RotatedData, null: NullFit,
             beta, se = beta_se_snp_batch(lgs, rot, Gr)
             ml = ml_snp_batch(lgs, rot, Gr) if lmm2 else torch.zeros_like(lgs)
             parts.append(torch.stack([lgs, beta, se, ml, torch.sum(Gr * Gr, dim=-1)]))
-        lgs, beta, se, ml, ssq = torch.cat(parts, dim=1).cpu().numpy()[:, :m]
+        return (torch.cat(parts, dim=1),)
+
+    def chunk(pg):
+        lgs, beta, se, ml, ssq = scan_resident(pg, block, dev, None, compute)[0]
         pwald = jstats.pwald_from_beta_se(beta, se)
         return [_result(pg, null, beta, se, pwald, ssq, lmm2,
                         10.0 ** lgs if lmm2 else None, ml if lmm2 else None)]
@@ -282,14 +278,8 @@ def _scan_state(basis: SpectralBasis, y: np.ndarray, covariates,
                 grid_points: int, device: torch.device):
     # strong digests, not hash(): a collision would silently serve one
     # trait's rotated data to another
-    key = (
-        id(basis.U),
-        hashlib.blake2b(y.tobytes(), digest_size=16).digest(),
-        None if covariates is None else hashlib.blake2b(
-            np.ascontiguousarray(covariates).tobytes(), digest_size=16).digest(),
-        grid_points,
-        str(device),
-    )
+    key = (id(basis.U), devcache.digest(y), devcache.digest(covariates), grid_points,
+           str(device))
     hit = _state_cache.get(key)
     if hit is not None:
         return hit
@@ -390,8 +380,8 @@ def lmm_scan_multi(
     if grid_points is None:
         grid_points = config.knob("JX_TPU_GRID_POINTS")
     # per-trait rotations/null fits are SNP-independent: computed once and
-    # carried through the superblocks; the traits share s and PXX, so their
-    # null fits are one launch on a card
+    # carried through the superblocks; the traits share one design (s and
+    # PXX), so their null fits are one launch on a card
     if _prepared is None:
         states = [_scan_state(basis, Y[:, t].copy(), covariates, grid_points, dev)
                   for t in range(Y.shape[1])]

@@ -18,6 +18,7 @@ A mesh may repeat a device, so a shard is never keyed by its device alone.
 
 from __future__ import annotations
 
+import hashlib
 import weakref
 
 import numpy as np
@@ -48,14 +49,23 @@ def to_device(arr: np.ndarray, dtype: torch.dtype, device: torch.device) -> torc
     return _remember(arr, key, dev)
 
 
-def derived(src, tag: str, device: torch.device, make) -> torch.Tensor:
-    """``make()`` (a device tensor derived from host array ``src``), cached
-    on the identity of ``src`` under ``tag``."""
+def derived(src, tag, device, make):
+    """``make()`` (device tensors, or host arrays, derived from ``src``),
+    cached on the identity of ``src`` under ``tag`` and ``device``."""
     key = (id(src), tag, str(device))
     hit = _cache.get(key)
     if hit is not None:
         return hit
     return _remember(src, key, make())
+
+
+def digest(arr) -> bytes | None:
+    """A content key of a host array (None for None): blake2b of its f64
+    values and shape, a strong digest (a collision would serve stale state)."""
+    if arr is None:
+        return None
+    a = np.ascontiguousarray(arr, np.float64)
+    return hashlib.blake2b(a.tobytes() + str(a.shape).encode(), digest_size=16).digest()
 
 
 def _sharded(host: np.ndarray, mesh, shard_axis: int, dtype=None) -> list:

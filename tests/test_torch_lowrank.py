@@ -228,3 +228,118 @@ def test_ld_clump_matches_reference(family_panel):
     args = (np.asarray(pt.sites.chrom), np.asarray(pt.sites.pos), pv, 1e-2)
     assert tld.ld_clump(pt, *args, window_bp=20_000) == jld.ld_clump(pj, *args,
                                                                     window_bp=20_000)
+
+
+# ------------------------------------- the design: what no trait changes
+_LR_DESIGN = ("S", "Xr", "PXX", "cXX", "X")
+_LR_GRID_DESIGN = ("grid_lg", "w32", "Axx32", "Ar_inv32", "logdetAr32")
+
+
+def _design_traits(family_panel, bases, T=4):
+    """The port's basis, the reference's LowRankBasis of the same arrays
+    (an SVD's signs aside), two covariates and T traits."""
+    _, pt, y, cov = family_panel
+    lt = bases[1]
+    lj = jfl.LowRankBasis(U=lt.U, S=lt.S, n=lt.n, ridge=lt.ridge)
+    rng = np.random.default_rng(8)
+    Y = y[:, None] + rng.normal(0.0, 0.5, (pt.n, T)) * np.arange(T)
+    return lt, lj, cov[:, :2], Y
+
+
+def test_traits_of_one_design_share_the_lowrank_rotation(family_panel, bases):
+    """Four traits hold the same S, Xr, PXX, cXX and X arrays, and each
+    RotatedLR is the reference's make_rotated_lr of its trait."""
+    lt, lj, c, Y = _design_traits(family_panel, bases)
+    rots = [tfl.make_rotated_lr(lt, Y[:, t], c) for t in range(4)]
+    for r in rots[1:]:
+        assert all(getattr(r, f) is getattr(rots[0], f) for f in _LR_DESIGN)
+        assert r.yr is not rots[0].yr and r.cXy is not rots[0].cXy
+    for t, rt in enumerate(rots):
+        rj = jfl.make_rotated_lr(lj, Y[:, t], c)
+        for f in tfl.RotatedLR._fields:
+            np.testing.assert_allclose(np.asarray(getattr(rt, f)), np.asarray(getattr(rj, f)),
+                                       rtol=1e-12, atol=1e-12, err_msg=f)
+
+
+def test_traits_of_one_design_share_the_lowrank_grid_and_constants(family_panel, bases):
+    """_grid_shared_lr and _lr_consts of four traits: the design's fields
+    are one set of objects; every field is what a state of a design not
+    yet seen gets, bit for bit; the design's grid pieces and every constant
+    are the reference's, and y's side is the reference's scaled by ysc."""
+    lt, lj, c, Y = _design_traits(family_panel, bases)
+    grid = np.linspace(-5.0, 5.0, 256)
+    Uk = torch.as_tensor(lt.U, dtype=torch.float32)
+    rots = [tfl.make_rotated_lr(lt, Y[:, t], c) for t in range(4)]
+    outs = [(tfl._grid_shared_lr(r, grid, "cpu"), tfl._lr_consts(r, Uk, "cpu")) for r in rots]
+    (sh0, _), cs0 = outs[0]
+    for (sh, ysc), cs in outs[1:]:
+        assert all(getattr(sh, f) is getattr(sh0, f) for f in _LR_GRID_DESIGN)
+        assert sh.axy32 is not sh0.axy32 and sh.logdetV32 is not sh0.logdetV32
+        assert all(getattr(cs, f) is getattr(cs0, f) for f in ("X", "Xr", "S64", "PXX64",
+                                                              "cXX64"))
+        assert cs.yr is not cs0.yr
+    for t, (rot, ((sh, ysc), cs)) in enumerate(zip(rots, outs)):
+        # another design's arrays, equal in value
+        alone = rot._replace(PXX=rot.PXX.copy(), X=rot.X.copy())
+        (sh1, ysc1), cs1 = tfl._grid_shared_lr(alone, grid, "cpu"), tfl._lr_consts(alone, Uk,
+                                                                                    "cpu")
+        assert sh1.w32 is not sh.w32 and cs1.PXX64 is not cs.PXX64
+        assert torch.equal(ysc1, ysc) and all(torch.equal(a, b) for a, b in zip(sh1, sh))
+        assert all(torch.equal(a, b) if torch.is_tensor(a) else a == b for a, b in zip(cs1, cs))
+        rj = jfl.make_rotated_lr(lj, Y[:, t], c)
+        shj, csj = jfl._grid_shared_lr(rj, grid), jfl._lr_consts(rj)
+        for f in _LR_GRID_DESIGN:
+            np.testing.assert_allclose(getattr(sh, f).numpy(), np.asarray(getattr(shj, f)),
+                                       rtol=1e-6, err_msg=f)
+        ys = ysc.double().numpy()
+        for f in ("axy32", "Ainv_axy32"):
+            np.testing.assert_allclose(getattr(sh, f).numpy(),
+                                       np.asarray(getattr(shj, f)) * ys[:, None], rtol=1e-6)
+        np.testing.assert_allclose(ys, np.asarray(shj.ayy32, np.float64) ** -0.5, rtol=1e-6)
+        for f in tfl._LrConsts._fields[1:]:
+            np.testing.assert_allclose(np.asarray(getattr(cs, f)), np.asarray(getattr(csj, f)),
+                                       rtol=1e-12, err_msg=f)
+
+
+@pytest.mark.parametrize("other", ["equal_covariates", "covariates", "basis", "grid"])
+def test_a_lowrank_design_is_found_by_its_basis_covariates_and_grid(family_panel, bases,
+                                                                   other):
+    """Covariates equal in content find the design; other covariates or
+    another basis get a new one; another grid, the design's rotation but new
+    grid pieces. Two traits on one design: one host U'X."""
+    from tests.test_torch_reml import CountingU
+
+    lt, _, c, Y = _design_traits(family_panel, bases, T=2)
+    lt = lt._replace(U=lt.U.copy().view(CountingU))
+    CountingU.products = 0
+    r0 = tfl.make_rotated_lr(lt, Y[:, 0], c)
+    sh0, _ = tfl._grid_shared_lr(r0, np.linspace(-5.0, 5.0, 64), "cpu")
+    lrb, cov, G = lt, np.asfortranarray(c), 64
+    if other == "covariates":
+        cov = c[:, ::-1]
+    elif other == "basis":
+        lrb = lt._replace(U=np.array(lt.U).view(CountingU))
+    elif other == "grid":
+        G = 65
+    r1 = tfl.make_rotated_lr(lrb, Y[:, 1], cov)
+    sh1, _ = tfl._grid_shared_lr(r1, np.linspace(-5.0, 5.0, G), "cpu")
+    same = other in ("equal_covariates", "grid")
+    assert CountingU.products == (1 if same else 2)
+    assert all((getattr(r1, f) is getattr(r0, f)) == same for f in _LR_DESIGN[1:])
+    assert (sh1.w32 is sh0.w32) == (other == "equal_covariates")
+
+
+def test_a_lowrank_design_dies_with_its_basis(family_panel, bases):
+    import gc
+    import weakref
+
+    lt, _, c, Y = _design_traits(family_panel, bases, T=2)
+    lrb = lt._replace(U=lt.U.copy())
+    rot = tfl.make_rotated_lr(lrb, Y[:, 0], c)
+    sh, _ = tfl._grid_shared_lr(rot, np.linspace(-5.0, 5.0, 32), "cpu")
+    cs = tfl._lr_consts(rot, torch.as_tensor(lrb.U, dtype=torch.float32), "cpu")
+    refs = [weakref.ref(a) for a in (rot.PXX, rot.cXX, sh.w32, cs.PXX64)]
+    assert tfl.make_rotated_lr(lrb, Y[:, 1], c).PXX is rot.PXX
+    del lrb, rot, sh, cs
+    gc.collect()
+    assert [r() is None for r in refs] == [True] * 4

@@ -356,3 +356,194 @@ def test_lmm_scan_multi_on_cpu_gives_the_per_trait_nulls():
     want = [treml.fit_null_reml_plain(treml.make_rotated(basis, Y[:, t], cov, device="cpu"))
             for t in range(T)]
     assert nulls == want
+
+
+# ------------------------------------- the design: what no trait changes
+class CountingU(np.ndarray):
+    """An eigenvector matrix that counts its products with a 2-D right
+    operand: the host U'X of a design (U'y, one trait's, is 1-D)."""
+
+    products = 0
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kw):
+        if ufunc is np.matmul and np.ndim(inputs[1]) == 2:
+            CountingU.products += 1
+        args = [np.asarray(a) if isinstance(a, CountingU) else a for a in inputs]
+        return getattr(ufunc, method)(*args, **kw)
+
+
+def _design_problem(p, T=4, n=120, seed=23):
+    """The reference's basis and the port's copy of it, covariates (p - 1
+    columns, None at p = 1) and T traits."""
+    rng = np.random.default_rng(seed)
+    g = rng.binomial(2, 0.3, size=(400, n)).astype(np.float64)
+    gc = g - g.mean(axis=1, keepdims=True)
+    basis_j = eigh_grm(gc.T @ gc / 400, diag_ridge=1e-6)
+    cov = rng.normal(size=(n, p - 1)) if p > 1 else None
+    Y = 4.0 + gc[:30].T @ rng.normal(0, 0.2, (30, T)) + rng.normal(size=(n, T))
+    return basis_j, interop.basis_from_numpy(basis_j), cov, Y
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_traits_of_one_design_share_its_rotation(p):
+    """Four traits on one basis and covariates hold the same s, Xr and PXX
+    objects, and each state is the reference's make_rotated of its trait."""
+    basis_j, basis, cov, Y = _design_problem(p)
+    rots = [treml.make_rotated(basis, Y[:, t], cov, device="cpu") for t in range(4)]
+    for r in rots[1:]:
+        assert r.s is rots[0].s and r.Xr is rots[0].Xr and r.PXX is rots[0].PXX
+        assert r.yr is not rots[0].yr and r.PXy is not rots[0].PXy
+    for t, rot_t in enumerate(rots):
+        rot_j = jreml.make_rotated(basis_j, Y[:, t], cov)
+        for f in jreml.RotatedData._fields:
+            np.testing.assert_allclose(getattr(rot_t, f).numpy(), np.asarray(getattr(rot_j, f)),
+                                       rtol=1e-10, atol=1e-12, err_msg=f)
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_traits_of_one_design_share_its_grid_pieces(p):
+    """grid_shared of four traits, each with its own grid tensor of the
+    same values: the design's fields are one set of objects, the trait's
+    are its own, and every field is the reference's grid_shared of that
+    trait."""
+    G = 256
+    basis_j, basis, cov, Y = _design_problem(p)
+    rots = [treml.make_rotated(basis, Y[:, t], cov, device="cpu") for t in range(4)]
+    shs = [treml.grid_shared(r, treml.make_grid(G, "cpu")) for r in rots]
+    for sh in shs[1:]:
+        for f in ("w32", "logdetV32", "Axx32", "Ar_inv32", "logdetAr32"):
+            assert getattr(sh, f) is getattr(shs[0], f), f
+        for f in ("axy32", "ayy32", "Ainv_axy32"):
+            assert getattr(sh, f) is not getattr(shs[0], f), f
+    grid_j = jnp.asarray(np.linspace(-5, 5, G), jnp.float64)
+    for t, sh_t in enumerate(shs):
+        sh_j = jreml.grid_shared(jreml.make_rotated(basis_j, Y[:, t], cov), grid_j)
+        np.testing.assert_allclose(sh_t.grid_lg.numpy(), np.asarray(sh_j.grid_lg), rtol=1e-10)
+        for f in jreml.GridShared._fields[1:]:
+            np.testing.assert_allclose(getattr(sh_t, f).numpy(), np.asarray(getattr(sh_j, f)),
+                                       rtol=1e-6, atol=1e-30, err_msg=f)
+
+
+@pytest.mark.parametrize("other", ["equal_covariates", "covariates", "no_covariates",
+                                   "basis", "grid"])
+def test_a_design_is_found_by_its_basis_covariates_and_grid(other):
+    """Covariates equal in content find the design; other covariates, or
+    another basis (equal in value), get a new one; another grid, the
+    design's rotation but new grid pieces."""
+    G = 64
+    _, basis, cov, Y = _design_problem(3)
+    r0 = treml.make_rotated(basis, Y[:, 0], cov, device="cpu")
+    sh0 = treml.grid_shared(r0, treml.make_grid(G, "cpu"))
+    if other == "equal_covariates":
+        r1 = treml.make_rotated(basis, Y[:, 1], np.asfortranarray(cov), device="cpu")
+    elif other == "covariates":
+        r1 = treml.make_rotated(basis, Y[:, 1], cov * 2.0, device="cpu")
+    elif other == "no_covariates":
+        r1 = treml.make_rotated(basis, Y[:, 1], None, device="cpu")
+    elif other == "basis":
+        twin = treml.SpectralBasis(basis.S.copy(), basis.U.copy())
+        r1 = treml.make_rotated(twin, Y[:, 1], cov, device="cpu")
+    else:
+        r1 = treml.make_rotated(basis, Y[:, 1], cov.copy(), device="cpu")
+    sh1 = treml.grid_shared(r1, treml.make_grid(G + (other == "grid"), "cpu"))
+    same = other in ("equal_covariates", "grid")
+    assert (r1.PXX is r0.PXX) == same and (r1.Xr is r0.Xr) == same
+    assert (sh1.w32 is sh0.w32) == (other == "equal_covariates")
+    if other == "basis":
+        np.testing.assert_allclose(r1.PXX.numpy(), r0.PXX.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_a_design_dies_with_its_basis():
+    """The design and its grid pieces are cached on basis.U: once the
+    basis is collected, so are they."""
+    import gc
+    import weakref
+
+    _, basis, cov, Y = _design_problem(3)
+    basis = treml.SpectralBasis(basis.S.copy(), basis.U.copy())
+    rot = treml.make_rotated(basis, Y[:, 0], cov, device="cpu")
+    sh = treml.grid_shared(rot, treml.make_grid(32, "cpu"))
+    refs = [weakref.ref(t) for t in (rot.s, rot.PXX, rot.Xr, sh.w32, sh.Ar_inv32)]
+    assert treml.make_rotated(basis, Y[:, 1], cov, device="cpu").PXX is rot.PXX
+    del basis, rot, sh
+    gc.collect()
+    assert [r() is None for r in refs] == [True] * 5
+
+
+@pytest.mark.parametrize("other", ["covariates", "basis"])
+def test_fit_null_reml_multi_rejects_states_of_two_designs(other):
+    """States of two designs do not share s and PXX: ValueError on the
+    CPU too, before any fit."""
+    from janusx_tpu_torch.utils import trace
+
+    _, basis, cov, Y = _design_problem(3)
+    if other == "covariates":
+        b, c = basis, cov[:, ::-1].copy()
+    else:
+        _, b, _, _ = _design_problem(3, seed=24)
+        c = cov
+    rots = [treml.make_rotated(basis, Y[:, 0], cov, device="cpu"),
+            treml.make_rotated(b, Y[:, 1], c, device="cpu")]
+    trace.reset("null_fit.")
+    with pytest.raises(ValueError, match="do not share s and PXX"):
+        treml.fit_null_reml_multi(rots)
+    assert "null_fit.plain" not in trace.counts()
+
+
+def _lmm_panel(seed=31, m=700, n=150):
+    from janusx_tpu_torch.io.gdata import GenotypeData, SiteInfo
+    from janusx_tpu_torch.io.packed import QcParams, pack_genotypes
+
+    rng = np.random.default_rng(seed)
+    g = rng.binomial(2, rng.uniform(0.05, 0.5, m)[:, None], size=(m, n)).astype(np.int8)
+    site = dict(chrom=np.array(["1"] * m, object), pos=np.arange(1, m + 1),
+                snp=np.array([f"rs{i}" for i in range(m)], object),
+                allele0=np.array(["A"] * m, object), allele1=np.array(["G"] * m, object))
+    pg = pack_genotypes(GenotypeData(g, SiteInfo(**site), np.array(
+        [f"i{j}" for j in range(n)], object)), QcParams())
+    gc = pg.centered()
+    Y = 1.0 + gc.T @ rng.normal(0, 0.03, (pg.m, 4)) + rng.normal(size=(n, 4))
+    return pg, gc, Y, rng.normal(size=(n, 2))
+
+
+def test_lmm_scan_multi_rotates_the_covariates_once():
+    """T = 4 traits of one step: one host U'X for the step, one state per
+    trait on the one design, and the per-trait scans' results."""
+    from janusx_tpu_torch.core.spectral import eigh_grm as t_eigh
+    from janusx_tpu_torch.models import lmm
+
+    pg, gc, Y, cov = _lmm_panel()
+    basis = t_eigh(gc.T @ gc / pg.m, diag_ridge=1e-6)
+    counted = treml.SpectralBasis(basis.S, basis.U.view(CountingU))
+    CountingU.products = 0
+    res, nulls = lmm.lmm_scan_multi(pg, counted, Y, cov, block=256, device="cpu")
+    assert CountingU.products == 1
+    states = [lmm._scan_state(counted, Y[:, t].copy(), cov, 256, torch.device("cpu"))
+              for t in range(4)]
+    assert CountingU.products == 1
+    assert all(s[0].PXX is states[0][0].PXX and s[2].w32 is states[0][2].w32 for s in states)
+    one, null = lmm.lmm_scan(pg, basis, Y[:, 2], cov, block=256, device="cpu")
+    np.testing.assert_array_equal(res[2].pwald, one.pwald)
+    assert nulls[2] == null
+
+
+def test_split_w_runs_once_per_design_and_grid(monkeypatch):
+    """K2's split W belongs to the design: a second lmm_scan of a new trait
+    on the same basis and covariates, and a two-trait step on them, do not
+    split it again; another grid does."""
+    from janusx_tpu_torch.core.spectral import eigh_grm as t_eigh
+    from janusx_tpu_torch.models import lmm
+    from janusx_tpu_torch.ops import kernels
+
+    pg, gc, Y, cov = _lmm_panel(seed=32)
+    basis = t_eigh(gc.T @ gc / pg.m, diag_ridge=1e-6)
+    calls = []
+    split = kernels.split_w
+    monkeypatch.setattr(kernels, "split_w", lambda W: calls.append(W.shape) or split(W))
+    lmm.lmm_scan(pg, basis, Y[:, 0], cov, block=256, device="cpu")
+    assert len(calls) == 1
+    lmm.lmm_scan(pg, basis, Y[:, 1], cov, block=256, device="cpu")
+    lmm.lmm_scan_multi(pg, basis, Y[:, 2:], cov, block=256, device="cpu")
+    assert len(calls) == 1
+    lmm.lmm_scan(pg, basis, Y[:, 1], cov, block=256, grid_points=128, device="cpu")
+    assert calls == [(256, pg.n), (128, pg.n)]
