@@ -14,24 +14,57 @@ each shard's uploads and launches on its own device, synchronizes only
 after the last shard is issued (so distinct cards overlap), and gathers
 the per-SNP outputs back in SNP order.
 
+A chunk of an in-memory panel is a view of its rows (``PanelSlice``), and
+``scan_resident`` serves it as a slice of the whole panel held on the
+device (utils.devcache.resident_packed_blocks), uploaded once for every
+scan of that panel; the launches, their operands and so the results are
+those of a chunk uploaded on its own. A panel that does not fit beside a
+scan's carry, and a chunk read from a lazy input, are padded and uploaded
+chunk by chunk.
+
 Spans (utils.trace): ``feed``, the wait for the next chunk on the host;
 ``superblock``, one resident chunk, and inside it ``upload`` (the device
 cache's lookups and, on a miss, the pad and the copy), ``kernels``
 (``compute``) and ``to_host`` (the copy back, which waits for the
-kernels); ``results``, the concatenation of the chunks' results.
+kernels); ``results``, the concatenation of the chunks' results. Counters:
+``feed.resident``, chunks served from a resident panel, and
+``feed.streamed``, chunks uploaded on their own.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.scan_common import ScanResult
 from janusx_tpu_torch.parallel.mesh import on_device
 from janusx_tpu_torch.utils import devcache, trace
 from janusx_tpu_torch.utils.prefetch import prefetch_one_ahead
 
 _END = object()
+
+
+@dataclass
+class PanelSlice(PackedGenotypes):
+    """SNPs [start, start + m) of a streamed input, one superblock:
+    ``panel`` is the in-memory PackedGenotypes they are rows of (the codes
+    and per-SNP arrays are views of its own), None for rows read from a
+    lazy input."""
+
+    panel: PackedGenotypes | None = None
+    start: int = 0
+
+
+def _cut(pg, s0: int, s1: int) -> PanelSlice:
+    if isinstance(pg, PackedGenotypes):
+        rows = slice(s0, s1)
+        return PanelSlice(packed=pg.packed[rows], n_samples=pg.n_samples,
+                          sites=pg.sites.take(rows), samples=pg.samples, af=pg.af[rows],
+                          miss=pg.miss[rows], mean=pg.mean[rows], panel=pg, start=s0)
+    return PanelSlice(**vars(pg.take_snps(np.arange(s0, s1))), start=s0)
 
 
 def stream(pg, superblock: int, block: int, scan_chunk, mesh=None) -> list[ScanResult]:
@@ -51,7 +84,7 @@ def stream(pg, superblock: int, block: int, scan_chunk, mesh=None) -> list[ScanR
         return scan_chunk(pg)
     sb = max((superblock // block) * block, block)
     spans = [(s0, min(s0 + sb, m)) for s0 in range(0, m, sb)]
-    chunks = prefetch_one_ahead(spans, lambda se: pg.take_snps(np.arange(se[0], se[1])))
+    chunks = prefetch_one_ahead(spans, lambda se: _cut(pg, *se))
     parts = []
     while True:
         with trace.span("feed"):
@@ -77,6 +110,34 @@ def replicas(tree, mesh) -> list:
     return [tree] if mesh is None else devcache.replicate_tree(tree, mesh)
 
 
+def _upload(pg, shape: tuple, dev, mesh, mean: bool) -> tuple[list, list]:
+    """The chunk's (nblk, B, nb) packed rows and (nblk, B) f32 means (None
+    unless ``mean``) on the device, one of each per shard: a slice of the
+    resident panel for a PanelSlice of one that fits, an upload of its own
+    for any other PanelSlice, the cached upload of a whole input."""
+    place = {"device": dev} if mesh is None else {"mesh": mesh, "shard_axis": 1}
+    B, rows, pk = shape[1], slice(None), None
+    panel = getattr(pg, "panel", None)
+    if panel is not None and pg.start % B == 0:
+        full = (-(-panel.m // B), B)
+        pk = devcache.resident_packed_blocks(panel, full, **place)
+    if pk is not None:
+        trace.count("feed.resident")
+        rows = slice(pg.start // B, pg.start // B + shape[0])
+        src, shape, blocks = panel, full, devcache.to_device_blocks
+    elif isinstance(pg, PanelSlice):
+        trace.count("feed.streamed")
+        pk = devcache.upload_packed_blocks(pg, shape, **place)
+        src, blocks = pg, devcache.upload_blocks
+    else:
+        pk = devcache.device_packed_blocks(pg, shape, **place)
+        src, blocks = pg, devcache.to_device_blocks
+    mn = blocks(src.mean, shape, 0.0, torch.float32, **place) if mean else None
+    per_shard = (lambda x: [x]) if mesh is None else list
+    pks = [x[rows] for x in per_shard(pk)]
+    return pks, ([None] * len(pks) if mn is None else [x[rows] for x in per_shard(mn)])
+
+
 @trace.spanned("superblock")
 def scan_resident(pg, block: int, dev, mesh, compute, mean: bool = True) -> list:
     """One resident chunk through ``compute(i, pk, mn, device)``, which
@@ -89,19 +150,13 @@ def scan_resident(pg, block: int, dev, mesh, compute, mean: bool = True) -> list
     m = pg.m
     block = shard_block(block, mesh)
     shape = (-(-m // block), block)
+    with trace.span("upload"):
+        pks, mns = _upload(pg, shape, dev, mesh, mean)
     if mesh is None:
-        with trace.span("upload"):
-            pk = devcache.device_packed_blocks(pg, shape, dev)
-            mn = (devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, dev)
-                  if mean else None)
         with trace.span("kernels"):
-            outs = compute(0, pk, mn, dev)
+            outs = compute(0, pks[0], mns[0], dev)
         with trace.span("to_host"):
             return [None if x is None else x.cpu().numpy()[..., :m] for x in outs]
-    with trace.span("upload"):
-        pks = devcache.device_packed_blocks(pg, shape, mesh=mesh, shard_axis=1)
-        mns = (devcache.to_device_blocks(pg.mean, shape, 0.0, torch.float32, mesh=mesh,
-                                         shard_axis=1) if mean else [None] * mesh.size)
     outs = []
     with trace.span("kernels"):
         for i, d in enumerate(mesh.device_list):

@@ -9,6 +9,13 @@ the finalizer has evicted the stale entry.
 
 Every upload (on a miss) adds its bytes to utils.trace's ``h2d_bytes``.
 
+A panel that a scan streams in superblocks is held whole on the device
+(``resident_packed_blocks``) while it fits beside what a scan carries, and
+each superblock is served as a slice of it. The least recently used panel
+makes way for a new one; one that cannot fit alone is not held. Chunks
+that are not held are uploaded uncached (``upload_packed_blocks``,
+``upload_blocks``).
+
 With a ``mesh`` (parallel.mesh.Mesh) the SNP-axis uploads are sharded: the
 padded host array is made once, split along ``shard_axis`` into one equal
 slice per shard, and cached as the list of per-shard tensors under the
@@ -19,7 +26,9 @@ A mesh may repeat a device, so a shard is never keyed by its device alone.
 from __future__ import annotations
 
 import hashlib
+import os
 import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -27,6 +36,8 @@ import torch
 from janusx_tpu_torch.utils import trace
 
 _cache: dict = {}
+# the resident panels' cache keys, least recently used first -> bytes per device
+_resident: OrderedDict = OrderedDict()
 
 
 def _remember(src, key, dev: torch.Tensor) -> torch.Tensor:
@@ -89,53 +100,109 @@ def _place_key(device, mesh):
     return str(device) if mesh is None else ("mesh", mesh.key)
 
 
-def device_packed_blocks(pg, shape: tuple, device: torch.device | None = None,
+def upload_packed_blocks(pg, shape: tuple, device: torch.device | None = None,
                          lane_align: int = 4, mesh=None, shard_axis: int = 1):
     """Lane-pad + row-pad (0xFF = code 3, decodes to 0) + reshape + upload
     a PackedGenotypes buffer as a pre-blocked uint8 tensor of ``shape`` +
-    (bytes,), cached on the identity of pg.packed. With ``mesh`` the
-    result is one tensor per shard, ``shard_axis`` (the per-block SNP axis)
-    split into equal slices."""
+    (bytes,), uncached, into memory of its own (never a view of the host
+    buffer). With ``mesh`` the result is one tensor per shard,
+    ``shard_axis`` (the per-block SNP axis) split into equal slices."""
     from janusx_tpu_torch.ops.decode import pad_packed_cols
 
-    src = pg.packed
+    padded = pad_packed_cols(pg.packed, lane_align)
+    m, nb = padded.shape
     m_pad = int(np.prod(shape))
-    key = (id(src), "packedb", shape, lane_align, src.shape, shard_axis,
-           _place_key(device, mesh))
+    if mesh is None:
+        # the rows copied straight to their place: no padded host copy
+        dev = torch.empty((m_pad, nb), dtype=torch.uint8, device=device)
+        dev[m:] = 0xFF
+        dev[:m].copy_(torch.as_tensor(padded))
+        return trace.uploaded(dev.view(shape + (nb,)))
+    if m != m_pad:
+        padded = np.concatenate([padded, np.full((m_pad - m, nb), 0xFF, np.uint8)])
+    return _sharded(padded.reshape(shape + (nb,)), mesh, shard_axis)
+
+
+def _packed_key(pg, shape, lane_align, shard_axis, device, mesh):
+    return (id(pg.packed), "packedb", shape, lane_align, pg.packed.shape, shard_axis,
+            _place_key(device, mesh))
+
+
+def device_packed_blocks(pg, shape: tuple, device: torch.device | None = None,
+                         lane_align: int = 4, mesh=None, shard_axis: int = 1):
+    """``upload_packed_blocks``, cached on the identity of pg.packed."""
+    key = _packed_key(pg, shape, lane_align, shard_axis, device, mesh)
     hit = _cache.get(key)
     if hit is not None:
         return hit
-    padded = pad_packed_cols(src, lane_align)
-    if padded.shape[0] != m_pad:
-        pad = np.full((m_pad - padded.shape[0], padded.shape[1]), 0xFF, np.uint8)
-        padded = np.concatenate([padded, pad])
-    host = padded.reshape(shape + (padded.shape[1],))
-    dev = (trace.uploaded(torch.as_tensor(host, device=device)) if mesh is None
-           else _sharded(host, mesh, shard_axis))
-    return _remember(src, key, dev)
+    return _remember(pg.packed, key, upload_packed_blocks(pg, shape, device, lane_align,
+                                                          mesh, shard_axis))
+
+
+def room(device) -> int:
+    """Bytes a resident panel may take on ``device``. On a card: what is
+    free there, the caching allocator's idle blocks included, less a
+    quarter of the card's memory, which a scan's carry (the rotated rows,
+    the lattices) needs beside the panel. On the CPU: half of the host's
+    free memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        idle = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        return free + idle - total // 4
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 2
+
+
+def resident_packed_blocks(pg, shape: tuple, device: torch.device | None = None,
+                           mesh=None, shard_axis: int = 1):
+    """``device_packed_blocks`` of a whole in-memory panel, held while it
+    fits: on a miss the least recently used resident panels are dropped
+    until ``room`` takes this one on each of its devices. None when it
+    cannot fit (nothing is uploaded)."""
+    key = _packed_key(pg, shape, 4, shard_axis, device, mesh)
+    if key not in _cache:
+        nbytes = int(np.prod(shape)) * pg.packed.shape[1]
+        need = ({torch.device(device or "cpu"): nbytes} if mesh is None else
+                {d: nbytes // mesh.size * mesh.device_list.count(d) for d in mesh.distinct})
+        while not all(room(d) >= b for d, b in need.items()):
+            if not _resident:
+                return None
+            _cache.pop(_resident.popitem(last=False)[0], None)
+        device_packed_blocks(pg, shape, device, mesh=mesh, shard_axis=shard_axis)
+        _resident[key] = need
+        weakref.finalize(pg.packed, _resident.pop, key, None)
+    if key in _resident:
+        _resident.move_to_end(key)
+    return _cache[key]
+
+
+def upload_blocks(arr: np.ndarray, shape: tuple, fill, dtype: torch.dtype,
+                  device: torch.device | None = None, mesh=None, shard_axis: int = 1):
+    """Pad the 1-D per-SNP array to prod(shape) with ``fill``, reshape,
+    upload as ``dtype`` (one tensor per shard with ``mesh``, as
+    upload_packed_blocks), uncached."""
+    host = np.asarray(arr)
+    m_pad = int(np.prod(shape))
+    if host.shape[0] != m_pad:
+        pad = np.full((m_pad - host.shape[0],) + host.shape[1:], fill, host.dtype)
+        host = np.concatenate([host, pad])
+    host = host.reshape(shape)
+    return (trace.uploaded(torch.as_tensor(host).to(dtype).to(device)) if mesh is None
+            else _sharded(host, mesh, shard_axis, dtype))
 
 
 def to_device_blocks(arr: np.ndarray, shape: tuple, fill, dtype: torch.dtype,
                      device: torch.device | None = None, mesh=None,
                      shard_axis: int = 1):
-    """Pad the 1-D per-SNP array to prod(shape) with ``fill``, reshape,
-    upload as ``dtype`` (one tensor per shard with ``mesh``, as
-    device_packed_blocks). Cached on source identity."""
+    """``upload_blocks``, cached on the identity of ``arr``."""
     arr = np.asarray(arr)
-    m_pad = int(np.prod(shape))
     key = (id(arr), "blocks", shape, fill, dtype, arr.shape, shard_axis,
            _place_key(device, mesh))
     hit = _cache.get(key)
     if hit is not None:
         return hit
-    host = arr
-    if host.shape[0] != m_pad:
-        pad = np.full((m_pad - host.shape[0],) + host.shape[1:], fill, host.dtype)
-        host = np.concatenate([host, pad])
-    host = host.reshape(shape)
-    dev = (trace.uploaded(torch.as_tensor(host).to(dtype).to(device)) if mesh is None
-           else _sharded(host, mesh, shard_axis, dtype))
-    return _remember(arr, key, dev)
+    return _remember(arr, key, upload_blocks(arr, shape, fill, dtype, device, mesh,
+                                             shard_axis))
 
 
 def replica(tree, device: torch.device):

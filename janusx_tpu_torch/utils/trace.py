@@ -23,7 +23,9 @@ Names in use: the spans of the scans (``fit_null``, ``rotate_y``,
 of ``jx gwas``; the counters ``h2d_bytes`` (bytes copied from the host to a
 device), ``launch.<wrapper>`` (ops.kernels' launches), ``gamma.card`` /
 ``gamma.host`` (GRAMMAR γ calibrations on the device / on the host),
-``lowrank.superblocks`` (resident superblocks of the low-rank scan) and
+``lowrank.superblocks`` (resident superblocks of the low-rank scan),
+``feed.resident`` / ``feed.streamed`` (superblocks served as a slice of a
+panel held on the device / uploaded on their own, models.superblocks) and
 ``null_fit.card`` / ``null_fit.plain`` (dense null REML fits through the
 null_reml_brent kernel, one per trait, / through the torch version).
 """

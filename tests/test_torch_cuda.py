@@ -280,15 +280,23 @@ def test_lmm_scan_splits_w_once_per_scan(dev, monkeypatch):
     assert len(calls) == 1
 
 
-def test_lmm_scan_counts_its_uploads(dev):
-    """utils.trace's h2d_bytes over lmm_scan. Two streamed superblocks, the
-    trait's rotated data and U already on the card: exactly the padded
-    packed rows and the f32 means of each superblock, and again on a second
-    call (each streamed superblock is a new host array, so the device cache
-    misses). One resident superblock: the panel and its means once, and 0
-    more on a second call with the same input."""
+def _fresh_panel(pg):
+    """``pg`` under a new identity: its codes and means new host arrays."""
+    import dataclasses
+
+    return dataclasses.replace(pg, packed=pg.packed.copy(), mean=pg.mean.copy())
+
+
+def test_lmm_scan_counts_its_uploads(dev, monkeypatch):
+    """utils.trace's h2d_bytes over lmm_scan, the trait's rotated data and
+    U already on the card. Two superblocks of an in-memory panel: the
+    first scan uploads the whole panel (padded rows and f32 means) once,
+    a second scan 0 more, and so does a scan of it in one superblock,
+    which shares that copy. With no room on the card
+    (``devcache.room`` 0) a panel streams: each superblock's padded rows
+    and means on every call, the same bytes in all."""
     from janusx_tpu_torch.models import lmm
-    from janusx_tpu_torch.utils import trace
+    from janusx_tpu_torch.utils import devcache, trace
 
     pg, basis, Y, _ = _scan_problem(3000, 300, 1)
     y = Y[:, 0]
@@ -299,16 +307,63 @@ def test_lmm_scan_counts_its_uploads(dev):
     assert len(chunks) == 2
     streamed = sum(-(-c // 512) * 512 * row for c in chunks)
     lmm.lmm_scan(pg, basis, y, block=512, superblock=2048, device=dev)
+    panel = _fresh_panel(pg)
+    before = h2d()
+    lmm.lmm_scan(panel, basis, y, block=512, superblock=2048, device=dev)
+    assert h2d() - before == -(-pg.m // 512) * 512 * row
+    for kw in ({"superblock": 2048}, {}):
+        before = h2d()
+        lmm.lmm_scan(panel, basis, y, block=512, device=dev, **kw)
+        assert h2d() == before
+    monkeypatch.setattr(devcache, "room", lambda device: 0)
+    other = _fresh_panel(pg)
     for _ in range(2):
         before = h2d()
-        lmm.lmm_scan(pg, basis, y, block=512, superblock=2048, device=dev)
+        lmm.lmm_scan(other, basis, y, block=512, superblock=2048, device=dev)
         assert h2d() - before == streamed
+
+
+def test_lmm_scan_holds_a_split_panel_across_traits(dev, monkeypatch):
+    """Two traits of lmm_scan on one panel in three superblocks: the second
+    trait uploads the panel's bytes fewer than the same trait on a copy
+    that streams (``devcache.room`` 0), and its results equal that
+    streamed path's bit for bit; once the panel is released the card's
+    allocated memory is back at its level before the panel's first
+    scan."""
+    import gc
+
+    from janusx_tpu_torch.models import lmm
+    from janusx_tpu_torch.utils import devcache, trace
+
+    pg0, basis, Y, _ = _scan_problem(3000, 300, 2)
+    h2d = lambda: trace.counts().get(trace.H2D, 0)
+    kw = dict(block=512, superblock=1024, device=dev)
+    row = decode.pad_packed_cols(pg0.packed[:1], 4).shape[1] + 4
+    panel_bytes = -(-pg0.m // 512) * 512 * row
+    with monkeypatch.context() as mp:
+        mp.setattr(devcache, "room", lambda device: 0)
+        copy = _fresh_panel(pg0)
+        for t in (0, 1):  # the traits' states on the card
+            lmm.lmm_scan(copy, basis, Y[:, t], **kw)
+        before = h2d()
+        ref = lmm.lmm_scan(copy, basis, Y[:, 1], **kw)[0]
+        streamed = h2d() - before
+        del copy
+    gc.collect()
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated(dev)
+    pg = _fresh_panel(pg0)
+    lmm.lmm_scan(pg, basis, Y[:, 0], **kw)
     before = h2d()
-    lmm.lmm_scan(pg, basis, y, block=512, device=dev)
-    assert h2d() - before == -(-pg.m // 512) * 512 * row
-    before = h2d()
-    lmm.lmm_scan(pg, basis, y, block=512, device=dev)
-    assert h2d() == before
+    got = lmm.lmm_scan(pg, basis, Y[:, 1], **kw)[0]
+    assert streamed - (h2d() - before) == panel_bytes
+    for a, b in ((got.beta, ref.beta), (got.se, ref.se), (got.pwald, ref.pwald)):
+        np.testing.assert_array_equal(a, b)
+    assert torch.cuda.memory_allocated(dev) > level
+    del pg
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == level
 
 
 def test_lmm_scan_multi_on_card_matches_single_trait_scans(dev):

@@ -494,9 +494,9 @@ def test_windowed_sharded_scan_chromosome_scale(mesh8, tmesh8, tmp_path):
     y = rng.normal(size=n)
 
     # spy on the packed uploads: every superblock arrives split into eight
-    # 1/8 slices (ephemeral windowed uploads are evicted with their source)
+    # 1/8 slices (a windowed superblock is uploaded on its own, uncached)
     seen = []
-    orig = devcache.device_packed_blocks
+    orig = devcache.upload_packed_blocks
 
     def spy(pg_, shape, *a, **kw):
         out = orig(pg_, shape, *a, **kw)
@@ -504,11 +504,11 @@ def test_windowed_sharded_scan_chromosome_scale(mesh8, tmesh8, tmp_path):
             seen.append((shape, [tuple(t.shape) for t in out]))
         return out
 
-    devcache.device_packed_blocks = spy
+    devcache.upload_packed_blocks = spy
     try:
         res = lm_scan(wp, y, block=1024, mesh=tmesh8)
     finally:
-        devcache.device_packed_blocks = orig
+        devcache.upload_packed_blocks = orig
     assert res.m == m and np.isfinite(res.beta).all()
     assert len(seen) == -(-m // win), "windowed superblocks were not mesh-sharded"
     for shape, shards in seen:
