@@ -1088,7 +1088,7 @@ def check_algwas(path: str, win, y, cov, qtl_ids) -> None:
     d_card = agree(card.result.pwald, tsv, "phase 8 ALGWAS rerun vs TSV", 1e-4)
     cov2 = np.concatenate([cov, farmcpu._decode_rows(win, sel).T], axis=1)
     cpu = lm.lm_scan(win, y, cov2, device="cpu")
-    cpu.pwald[sel] = farmcpu._qtn_pvalues(win, y, cov, sel)
+    cpu.pwald[sel] = farmcpu._qtn_pvalues(win, y, cov, sel)[2]
     d_cpu = agree(tsv, cpu.pwald, "phase 8 ALGWAS stage 2 cpu rescan", 0.05)
     hits = sum(1 for i in sel if win.sites.snp[i] in qtl_ids)
     steps = int(np.isfinite(card.ebic_path).sum())

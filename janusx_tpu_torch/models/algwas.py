@@ -201,7 +201,7 @@ def algwas_scan(
     if len(selected) and pg_qtn is None:
         # QTN rows get conditional refit stats only when they live in the
         # scanned panel (indices refer to the QTN panel otherwise)
-        res.pwald[selected] = _qtn_pvalues(pg, y, covariates, selected)
+        res.pwald[selected] = _qtn_pvalues(pg, y, covariates, selected)[2]
     return AlgwasResult(
         result=res, selected=selected, ebic_path=ebic,
         lambda_path=lambdas.astype(np.float64),

@@ -18,8 +18,21 @@ semantics, 49/49 QTN parity documented in doc/release/v1.0.26.md):
        |r| > 0.7 redundancy rule against retained QTNs.
     5. Stop when the QTN set repeats (fixed point or 2-cycle) or the loop
        cap is reached.
-  Final: FEM scan with the converged QTN set; pseudo-QTN rows get their
-  p-values from their own covariate t-tests in the background model.
+  Final: FEM scan with the converged QTN set; pseudo-QTN rows report
+  beta, se and p of their own coefficients in the joint background model
+  (rMVP reports a pseudo-QTN's estimate from the final model).
+
+This module began as a line-for-line copy of janusx_tpu/models/farmcpu.py
+and is port-owned now, for three changes the copy could not take: the
+spans of its host stages (``farmcpu``, ``fc_*``); one stable order of a
+loop's p-values for all of its candidate lead sets (``_lead_sets``; the
+copy sorted once per (window, count) pair, 15 full sorts a loop at the
+defaults), sorted only as far as the walks reach, which gives the same
+sets bit for bit; and the pseudo-QTN rows' beta and se, which the copy
+took from a scan in which the marker is one of its own covariates, so
+that g'M_X g was rounding error and beta and se were noise or NaN. The selection (every loop's QTN set, the final set and
+the loop count) is held equal to the JAX package's by
+tests/test_torch_farmcpu.py.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from janusx_tpu_torch import config
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.lm import lm_scan, student_t_p_two_sided, design_matrix
 from janusx_tpu_torch.models.scan_common import ScanResult
+from janusx_tpu_torch.utils import trace
 
 log = logging.getLogger("janusx_tpu.farmcpu")
 
@@ -65,41 +79,88 @@ def _lead_count_grid(qb: int, nbin: int) -> tuple[int, ...]:
     vals = tuple(range(step, qb + 1, step))
     return vals or (qb,)
 LD_REDUNDANCY_R = 0.7
+_KEY_STRIDE = 10_000_000_000  # _pos_key's chromosome stride
+_WALK_CHUNK = 256  # first chunk of a lead walk; later chunks double
+_HEAD = 4096  # markers of a loop's p order sorted before the walks
 
 
+@trace.spanned("fc_map")
 def _pos_key(pgq) -> np.ndarray:
     """Chromosome-major composite position key (stride 1e10, mirrored by
-    _bin_leads' bin decomposition) — single definition for both routes."""
-    chrom_ids = {c: i for i, c in enumerate(dict.fromkeys(pgq.sites.chrom))}
-    return np.array(
-        [chrom_ids[c] * 10_000_000_000 + p
-         for c, p in zip(pgq.sites.chrom, pgq.sites.pos)],
-        dtype=np.int64,
-    )
+    _lead_sets' bin decomposition) — single definition for both routes.
+    Chromosome ids follow first appearance; they are looked up once per run
+    of equal labels rather than once per site."""
+    chrom = np.asarray(pgq.sites.chrom)
+    pos = np.asarray(pgq.sites.pos).astype(np.int64)
+    new_run = np.ones(len(chrom), dtype=bool)
+    new_run[1:] = chrom[1:] != chrom[:-1]
+    starts = np.flatnonzero(new_run)
+    labels = chrom[starts].tolist()
+    chrom_ids = {c: i for i, c in enumerate(dict.fromkeys(labels))}
+    run_ids = np.array([chrom_ids[c] for c in labels], dtype=np.int64)
+    return np.repeat(run_ids, np.diff(np.append(starts, len(chrom)))) * _KEY_STRIDE + pos
 
 
-def _bin_leads(pos_key: np.ndarray, pvals: np.ndarray, window: int, n_lead: int):
-    """Best marker per genomic window, then the n_lead most significant.
+def _stable_head(pvals: np.ndarray, k: int) -> np.ndarray:
+    """The start of ``np.argsort(pvals, kind="stable")`` down to its k-th
+    marker, ties with it included, from one partition and a sort of those
+    markers alone; the whole order when fewer than k p-values are finite."""
+    if len(pvals) > k:
+        cut = np.partition(pvals, k - 1)[k - 1]
+        if not np.isnan(cut):
+            head = np.flatnonzero(pvals <= cut)
+            return head[np.argsort(pvals[head], kind="stable")]
+    return np.argsort(pvals, kind="stable")
 
-    Windows never straddle chromosomes: the bin id is (chrom, pos//window)
-    rather than pos_key//window, which merges a chromosome tail with the
-    next head whenever window does not divide the 1e10 key stride."""
-    chrom_part = pos_key // 10_000_000_000
-    bins = chrom_part * (1 << 40) + (pos_key % 10_000_000_000) // window
-    order = np.argsort(pvals, kind="stable")
+
+def _walk(order: np.ndarray, bins: np.ndarray, k: int) -> np.ndarray:
+    """The first k markers of ``order`` in distinct bins (fewer if the
+    order runs out); ``bins[j]`` is the bin of marker ``order[j]``."""
     seen: set = set()
-    leads = []
-    for i in order:
-        b = bins[i]
-        if b in seen:
-            continue
-        seen.add(b)
-        leads.append(i)
-        if len(leads) >= n_lead:
-            break
-    return np.array(sorted(leads), dtype=np.int64)
+    leads: list = []
+    start, chunk = 0, _WALK_CHUNK
+    while len(leads) < k and start < len(order):
+        for i, b in zip(order[start:start + chunk].tolist(),
+                        bins[start:start + chunk].tolist()):
+            if b not in seen:
+                seen.add(b)
+                leads.append(i)
+                if len(leads) == k:
+                    break
+        start, chunk = start + chunk, 2 * chunk
+    return np.array(leads, dtype=np.int64)
 
 
+@trace.spanned("fc_bins")
+def _lead_sets(pos_key: np.ndarray, pvals: np.ndarray, windows, lead_counts) -> dict:
+    """Every candidate lead set of a loop, keyed (window, count): the best
+    marker of each of the ``count`` most significant ``window``-bins.
+
+    That set is the first ``count`` distinct bins met walking the markers
+    in stable p order, so one stable order serves every window, one walk
+    per window to the largest count finds its leads, and each count's set
+    is a prefix of them, sorted. The order is sorted only as far as its
+    first ``_HEAD`` markers (``_stable_head``); should a walk run past them,
+    the walks are made again over the whole order. A window with fewer bins
+    than a count gives all its bins. Windows never straddle chromosomes:
+    the bin id is (chrom, pos//window) rather than pos_key//window, which
+    merges a chromosome tail with the next head whenever window does not
+    divide the 1e10 key stride."""
+    k_max = max(lead_counts)
+
+    def walks(order):  # the bins of the ordered markers only
+        key = pos_key[order]
+        chrom_part, within = key // _KEY_STRIDE * (1 << 40), key % _KEY_STRIDE
+        return [_walk(order, chrom_part + within // win, k_max) for win in windows]
+
+    order = _stable_head(pvals, _HEAD)
+    leads = walks(order)
+    if len(order) < len(pvals) and min(len(w) for w in leads) < k_max:
+        leads = walks(np.argsort(pvals, kind="stable"))
+    return {(win, nb): np.sort(w[:nb]) for win, w in zip(windows, leads) for nb in lead_counts}
+
+
+@trace.spanned("fc_rem")
 def _rem_score(Zq: np.ndarray, y: np.ndarray) -> float:
     """-REML loglik of y ~ N(1μ, vg K_q + ve I), K_q = Zq'Zq/q (low rank).
 
@@ -137,6 +198,27 @@ def _rem_score(Zq: np.ndarray, y: np.ndarray) -> float:
     return float(res.fun)
 
 
+def _best_lead_set(pg, sets: dict, windows, lead_counts, y: np.ndarray) -> np.ndarray:
+    """The candidate lead set of least -REML (``_rem_score``), the first in
+    window then count order on a tie; empty if every set is. A loop's sets
+    share most of their markers (each count's set is a prefix of its
+    window's), so their union is decoded once and each set scored on its
+    rows of it."""
+    pool = np.unique(np.concatenate([sets[key] for key in sets]))
+    Z = _decode_rows(pg, pool)
+    best_score = np.inf
+    best = np.array([], dtype=np.int64)
+    for win in windows:
+        for nb in lead_counts:
+            leads = sets[win, nb]
+            if len(leads) == 0:
+                continue
+            score = _rem_score(Z[np.searchsorted(pool, leads)], y)
+            if score < best_score:
+                best_score, best = score, leads
+    return best
+
+
 @dataclass
 class FarmcpuResult:
     result: ScanResult
@@ -148,6 +230,7 @@ class FarmcpuResult:
     loop_sets: list = None
 
 
+@trace.spanned("farmcpu")
 def farmcpu_scan(
     pg: PackedGenotypes,
     y: np.ndarray,
@@ -204,7 +287,7 @@ def farmcpu_scan(
         res = lm_scan(pgq, y, cov, block=block, mesh=mesh)
         pvals = res.pwald.copy()
         if len(qtns):
-            pvals[qtns] = _qtn_pvalues(pgq, y, covariates, qtns)
+            pvals[qtns] = _qtn_pvalues(pgq, y, covariates, qtns)[2]
         if loop == 0 and np.nanmin(pvals) >= p_threshold:
             log.info("farmcpu: no marker passes threshold %.3g", p_threshold)
             if pg_qtn is not None:
@@ -218,18 +301,8 @@ def farmcpu_scan(
         # (farmcpu.rs:832 select_lead_indices has no p cut;
         # farmcpu_raw_prepare_seq_qtn:899-911 filters the union with
         # keep_saved=true)
-        best_score = np.inf
-        best_leads = np.array([], dtype=np.int64)
-        for win in window_sizes:
-            for nb in lead_counts:
-                leads = _bin_leads(pos_key, pvals, win, nb)
-                if len(leads) == 0:
-                    continue
-                Zq = _decode_rows(pgq, leads)
-                score = _rem_score(Zq, y)
-                if score < best_score:
-                    best_score = score
-                    best_leads = leads
+        sets = _lead_sets(pos_key, pvals, window_sizes, lead_counts)
+        best_leads = _best_lead_set(pgq, sets, window_sizes, lead_counts, y)
         best_leads = best_leads[pvals[best_leads] < qtn_threshold]
         cand = np.unique(np.concatenate([qtns, best_leads]))
         # redundancy removal: |r| > 0.7 keeps the more significant marker
@@ -255,12 +328,15 @@ def farmcpu_scan(
         cov = cov_q if cov is None else np.concatenate([cov, cov_q], axis=1)
     final = lm_scan(pg, y, cov, block=block, mesh=mesh)
     if len(qtns) and pg_qtn is None:
-        qp = _qtn_pvalues(pg, y, covariates, qtns)
-        final.pwald[qtns] = qp
+        # pseudo-QTN rows: their coefficients in the joint background
+        # model (in the scan each is one of its own covariates)
+        final.beta[qtns], final.se[qtns], final.pwald[qtns] = _qtn_pvalues(
+            pg, y, covariates, qtns)
     return FarmcpuResult(result=final, qtns=qtns, loops=loop + 1,
                          loop_sets=loop_sets)
 
 
+@trace.spanned("fc_decode")
 def _decode_rows(pg: PackedGenotypes, idx: np.ndarray) -> np.ndarray:
     """Batched centered decode of the requested SNP rows (one take_snps
     pass — the per-row loop this replaces cost O(q) full decode pipeline
@@ -271,9 +347,10 @@ def _decode_rows(pg: PackedGenotypes, idx: np.ndarray) -> np.ndarray:
     return pg.take_snps(idx).centered()
 
 
-def _qtn_pvalues(pg, y, covariates, qtns) -> np.ndarray:
-    """p-values of the pseudo-QTN coefficients in the joint background model
-    (rMVP behavior: QTN rows report their covariate t-tests)."""
+@trace.spanned("fc_qtn_p")
+def _qtn_pvalues(pg, y, covariates, qtns) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """beta, se and p of the pseudo-QTN coefficients in the joint background
+    model (rMVP behavior: QTN rows report their covariate t-tests)."""
     Zq = _decode_rows(pg, qtns)
     n = pg.n
     X = design_matrix(n, covariates)
@@ -281,7 +358,7 @@ def _qtn_pvalues(pg, y, covariates, qtns) -> np.ndarray:
     k = Xf.shape[1]
     df = n - k
     if df <= 0:
-        return np.ones(len(qtns))
+        return np.full(len(qtns), np.nan), np.full(len(qtns), np.nan), np.ones(len(qtns))
     XtX = Xf.T @ Xf + 1e-10 * np.eye(k)
     Cinv = np.linalg.inv(XtX)
     beta = Cinv @ (Xf.T @ y)
@@ -290,7 +367,8 @@ def _qtn_pvalues(pg, y, covariates, qtns) -> np.ndarray:
     se = np.sqrt(np.maximum(sigma2 * np.diag(Cinv), 1e-300))
     t = beta / se
     pv = student_t_p_two_sided(t, df)
-    return pv[X.shape[1]:]
+    j = X.shape[1]
+    return beta[j:], se[j:], pv[j:]
 
 
 def _corr_matrix(pg, idx: np.ndarray) -> np.ndarray:
@@ -303,6 +381,7 @@ def _corr_matrix(pg, idx: np.ndarray) -> np.ndarray:
     return Zn @ Zn.T
 
 
+@trace.spanned("fc_prune")
 def _prune_correlated(pg, cand, pvals, r_cut):
     if len(cand) <= 1:
         return cand
@@ -429,7 +508,7 @@ def farmcpu_unified_scan(
         res = lm_scan(pg, y, cov, block=block, mesh=mesh)
         femp = res.pwald.copy()
         if len(qtns):
-            femp[qtns] = _qtn_pvalues(pg, y, covariates, qtns)
+            femp[qtns] = _qtn_pvalues(pg, y, covariates, qtns)[2]
         masked = femp.copy()
         if seen:
             masked[np.fromiter(seen, dtype=np.int64)] = 1.0
@@ -437,20 +516,11 @@ def farmcpu_unified_scan(
             log.info("frgwas loop %d: no unmasked marker passes tau", loop + 1)
             break
 
-        best_rem = np.inf
-        opt_lead = np.array([], dtype=np.int64)
-        for win in window_sizes:
-            for nb in lead_counts:
-                # reference select_lead_indices (farmcpu.rs:832) applies
-                # NO p cut: the REM likelihood alone picks the lead set;
-                # tau only gates loop continuation (checked above)
-                leads = _bin_leads(pos_key, masked, win, nb)
-                if len(leads) == 0:
-                    continue
-                score = _rem_score(_decode_rows(pg, leads), y)
-                if score < best_rem:
-                    best_rem = score
-                    opt_lead = leads
+        # reference select_lead_indices (farmcpu.rs:832) applies NO p cut:
+        # the REM likelihood alone picks the lead set; tau only gates loop
+        # continuation (checked above)
+        sets = _lead_sets(pos_key, masked, window_sizes, lead_counts)
+        opt_lead = _best_lead_set(pg, sets, window_sizes, lead_counts, y)
         union = np.unique(np.concatenate([qtns, opt_lead]))
         for i in union:
             s = femp[i] if np.isfinite(femp[i]) else 1.0

@@ -12,10 +12,13 @@ Device step per SNP block: decode the packed 2-bit codes to centered f32,
 then the f32 grams G @ M_X Y and G @ X as plain ``torch.matmul`` (the
 reference computes them in XLA, outside any Pallas kernel) + row
 reductions; centering makes the pad lanes exact zeros so no masking is
-needed. The reference pads the design with zero columns to a width of 8
-(lm.py:151-164) only to spare XLA a recompile per covariate count; PyTorch
-runs eagerly, so the port takes the design as it is (zero columns leave
-every statistic bit-identical). One trait is the multi-trait scan with T = 1.
+needed. beta, se and the Student-t p follow on the device in f64 (the p
+by ``ops.kernels.student_t_p``: T1 on the card), so the host receives the
+finished statistics and computes none per SNP. The reference pads the
+design with zero columns to a width of 8 (lm.py:151-164) only to spare XLA
+a recompile per covariate count; PyTorch runs eagerly, so the port takes
+the design as it is (zero columns leave every statistic bit-identical).
+One trait is the multi-trait scan with T = 1.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from janusx_tpu_torch import config
 from janusx_tpu_torch.io.packed import PackedGenotypes
 from janusx_tpu_torch.models.scan_common import ScanResult
 from janusx_tpu_torch.models.superblocks import scan_resident, stream
+from janusx_tpu_torch.ops import kernels
 from janusx_tpu_torch.ops.decode import decode_centered
 from janusx_tpu_torch.parallel.mesh import home_device
 from janusx_tpu_torch.utils import trace
@@ -59,20 +63,47 @@ def design_matrix(n: int, covariates: np.ndarray | None) -> np.ndarray:
     return np.concatenate([ones, np.asarray(covariates, np.float64)], axis=1)
 
 
+# _lm_grams decodes as many whole blocks at once as fit in about this many
+# bytes of f32 genotypes: each round is a dozen launches whatever its
+# rows, and at n = 5,000 a block of 2,048 rows is 41 MB
+_GRAM_ROUND_BYTES = 1 << 28
+
+
 def _lm_grams(pk, mn, X, C, MY, n: int):
     """f32 grams of pre-blocked (nblk, B, nb) packed rows on their device:
     g'M_X Y (nblk*B, T) and g'M_X g (nblk*B,), returned as f64."""
     X32, C32, MY32 = (trace.uploaded(torch.as_tensor(a, dtype=f32, device=pk.device))
                       for a in (X, C, MY))
+    nblk, B, nb = pk.shape
+    step = max(_GRAM_ROUND_BYTES // (B * 4 * nb * 4), 1)
     gMY, gMg = [], []
-    for i in range(pk.shape[0]):
-        G = decode_centered(pk[i], mn[i], f32)[:, :n]
+    for i in range(0, nblk, step):
+        G = decode_centered(pk[i:i + step].reshape(-1, nb), mn[i:i + step].reshape(-1),
+                            f32)[:, :n]
         GX = G @ X32
         gMY.append(G @ MY32)
-        gMg.append(torch.sum(G * G, dim=-1) - torch.einsum("bp,pq,bq->b", GX, C32, GX))
+        # two operands: a three-operand einsum searches its contraction
+        # path (opt_einsum, in Python) on every call, once per round
+        gMg.append(torch.sum(G * G, dim=-1) - torch.einsum("bq,bq->b", GX @ C32, GX))
     return torch.cat(gMY).double(), torch.cat(gMg).double()
 
 
+def _lm_stats(gMY: torch.Tensor, gMg: torch.Tensor, yMy: np.ndarray, df: int):
+    """beta, se and the two-sided Student-t p of every SNP and trait from
+    the f64 grams g'M_X Y (T, rows) and g'M_X g (rows,), on their device;
+    a SNP whose statistics are not finite, or whose g'M_X g is ~0, reads
+    beta and se NaN and p 1."""
+    yMy = trace.uploaded(torch.as_tensor(yMy, dtype=torch.float64, device=gMY.device))[:, None]
+    beta = gMY / gMg
+    rss = yMy - gMY * gMY / gMg
+    se = torch.sqrt(rss / df / gMg)
+    ok = torch.isfinite(beta) & torch.isfinite(se) & (se > 0) & (gMg > 1e-12)
+    pw = kernels.student_t_p(torch.where(ok, beta / se, 0.0), df)
+    nan = torch.full_like(beta, float("nan"))
+    return torch.where(ok, beta, nan), torch.where(ok, se, nan), torch.where(ok, pw, 1.0)
+
+
+@trace.spanned("lm_scan")
 def lm_scan_multi(
     pg: PackedGenotypes,
     Y: np.ndarray,
@@ -86,7 +117,8 @@ def lm_scan_multi(
     and covariates; the decode and the X grams are shared, the numerators
     come from one (B, n) x (n, T) matmul per block. With ``mesh`` each
     shard forms the grams of its SNP slice on its device (janusx_tpu's
-    _lm_scan_sharded_multi)."""
+    _lm_scan_sharded_multi). Each call counts one under ``lm.scans`` and
+    its design's width p (intercept included) under ``lm.design_cols``."""
     dev = home_device(mesh, device)
     Y = np.asarray(Y, np.float64)
     if Y.ndim == 1:
@@ -99,6 +131,8 @@ def lm_scan_multi(
     df = n - p - 1
     if df <= 0:
         raise ValueError("not enough samples for LM scan (df <= 0)")
+    trace.count("lm.scans")
+    trace.count("lm.design_cols", p)
     C = np.linalg.inv(X.T @ X)
     MY = Y - X @ (C @ (X.T @ Y))  # (n, T)
     yMy = np.einsum("nt,nt->t", Y, MY)
@@ -106,29 +140,12 @@ def lm_scan_multi(
 
     def compute(i, pk, mn, d):
         gMY, gMg = _lm_grams(pk, mn, X, C, MY, n)
-        return gMY.T, gMg
+        return _lm_stats(gMY.T, gMg, yMy, df)
 
     def chunk(pg):
-        gMY, gMg = scan_resident(pg, block, dev, mesh, compute)
-        gMY = gMY.T
-        results = []
-        for t in range(T):
-            gMy = gMY[:, t]
-            with np.errstate(divide="ignore", invalid="ignore"):
-                beta = gMy / gMg
-                rss = yMy[t] - gMy * gMy / gMg
-                se = np.sqrt(rss / df / gMg)
-            ok = np.isfinite(beta) & np.isfinite(se) & (se > 0) & (gMg > 1e-12)
-            with np.errstate(divide="ignore", invalid="ignore"):
-                tt = np.where(ok, beta / se, 0.0)
-            pw = student_t_p_two_sided(tt, df)
-            results.append(ScanResult(
-                sites=pg.sites, af=pg.af, miss=pg.miss,
-                beta=np.where(ok, beta, np.nan),
-                se=np.where(ok, se, np.nan),
-                pwald=np.where(ok, pw, 1.0),
-            ))
-        return results
+        beta, se, pw = scan_resident(pg, block, dev, mesh, compute)
+        return [ScanResult(sites=pg.sites, af=pg.af, miss=pg.miss, beta=beta[t], se=se[t],
+                           pwald=pw[t]) for t in range(T)]
 
     return stream(pg, superblock, block, chunk, mesh)
 

@@ -28,6 +28,12 @@ loop with no Pallas (janusx_tpu/core/reml.py's fit_null_reml):
 - N1 ``null_reml_brent``: each trait's whole lockstep Brent over log10 λ
   in one thread block, every trait of a launch at once (csrc/nullfit.cu).
 
+One forms the LM scan's p on the card, which the JAX package forms on the
+host with scipy (janusx_tpu/models/lm.py):
+
+- T1 ``student_t_p``: the two-sided Student-t p of every SNP, a lane's
+  whole continued fraction in one thread (csrc/tdist.cu).
+
 All are CUDA C++ for ``sm_90a``, compiled with ``nvcc`` on first use into
 ``build/janusx_tpu_torch/`` (keyed on a hash of the sources and flags) and
 bound with ``ctypes``. A wrapper takes its plain-PyTorch version only for
@@ -61,7 +67,7 @@ from janusx_tpu_torch.utils import trace
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR.parent / "build" / "janusx_tpu_torch"
-_SOURCES = ("rotate.cu", "lattice.cu", "gibbs.cu", "nullfit.cu")
+_SOURCES = ("rotate.cu", "lattice.cu", "gibbs.cu", "nullfit.cu", "tdist.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -137,6 +143,8 @@ def _lib() -> ctypes.CDLL:
     lib.jx_null_reml_workspace.restype = ctypes.c_longlong
     lib.jx_null_reml_brent.argtypes = [p] * 6 + [i] * 3 + [d] * 3 + [i] + [d] * 3 + [p]
     lib.jx_null_reml_brent.restype = i
+    lib.jx_student_t_p.argtypes = [p, p, ctypes.c_longlong, d, d, p]
+    lib.jx_student_t_p.restype = i
     return lib
 
 
@@ -801,8 +809,108 @@ def null_reml_brent(s: torch.Tensor, PXX: torch.Tensor, PXy: torch.Tensor,
     return out
 
 
+# ------------------------------------------------- T1 Student-t p
+# a continued fraction's terms checked for convergence every this many
+# steps (one host sync each); it stops when every lane's factor has come
+# within _CF_EPS of 1, or after _CF_MAX_STEPS
+_CF_CHECK, _CF_EPS, _CF_MAX_STEPS = 8, 1e-15, 4096
+_CF_TINY = 1e-300
+_DBL_MIN = torch.finfo(torch.float64).tiny
+
+
+def _off_zero(v: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.abs(v) < _CF_TINY, _CF_TINY, v)
+
+
+def _betacf_plain(a: float, b: float, x: torch.Tensor) -> torch.Tensor:
+    """The continued fraction of the regularized incomplete beta I_x(a, b),
+    by the modified Lentz method (Numerical Recipes 6.4, betacf), per lane;
+    it converges fast for x < (a + 1) / (a + b + 2). The coefficients are
+    host scalars, so a step is a few fused multiply-adds over the lanes. A
+    lane is left as it is from the step whose factor first comes within
+    _CF_EPS of 1: past it the factors only wander by the recurrence's
+    rounding."""
+    if x.numel() == 0:
+        return x
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+    one = torch.ones_like(x)
+    c = one
+    d = torch.reciprocal(_off_zero(torch.add(one, x, alpha=-qab / qap)))
+    h = d
+    done = torch.isnan(x)
+    for m in range(1, _CF_MAX_STEPS + 1):
+        m2 = 2.0 * m
+        k = m * (b - m) / ((qam + m2) * (a + m2))
+        d = torch.reciprocal(_off_zero(torch.addcmul(one, x, d, value=k)))
+        c = _off_zero(torch.addcdiv(one, x, c, value=k))
+        step = d * c
+        k = -(a + m) * (qab + m) / ((a + m2) * (qap + m2))
+        d = torch.reciprocal(_off_zero(torch.addcmul(one, x, d, value=k)))
+        c = _off_zero(torch.addcdiv(one, x, c, value=k))
+        last = d * c
+        h = torch.where(done, h, h * step * last)
+        done = done | (torch.abs(last - 1.0) <= _CF_EPS)
+        if m % _CF_CHECK == 0 and bool(torch.all(done)):
+            break
+    return h
+
+
+def student_t_p_plain(t: torch.Tensor, df: int) -> torch.Tensor:
+    """Plain version of T1 (``student_t_p``): models.lm.student_t_p_two_sided
+    as torch ops in f64, every lane's continued fraction a step at a time
+    (csrc/tdist.cu's algorithm). 1 - x is formed from t, not from the
+    rounded x, so near t = 0 this is closer to the t distribution's tail
+    than the host's betainc; elsewhere the two agree to ~1e-11 relative at
+    df in the thousands (the lgamma of the front factor)."""
+    f64 = torch.float64
+    t = t.to(f64)
+    if df <= 0:
+        return torch.full_like(t, float("nan"))
+    a, b = df / 2.0, 0.5
+    tt = t * t
+    x = df / (df + tt)
+    # 1 - x, without its cancellation near t = 0
+    xc = torch.where(torch.isinf(tt), 1.0, tt / (df + tt))
+    front = torch.exp(-_log_beta(a, b) - a * torch.log1p(tt / df) + b * torch.log(xc))
+    # below the turning point I_x(a, b) by its own fraction; past it
+    # 1 - I_{1-x}(b, a), whose fraction converges there
+    swap = x >= (a + 1.0) / (a + b + 2.0)
+    p = torch.empty_like(x)
+    low = ~swap
+    p[low] = front[low] * _betacf_plain(a, b, x[low]) / a
+    p[swap] = 1.0 - front[swap] * _betacf_plain(b, a, xc[swap]) / b
+    p = torch.where(torch.isfinite(p), p, 1.0)
+    p = torch.clamp(p, _DBL_MIN, 1.0)
+    p = torch.where(torch.isnan(t), t, p)
+    return torch.where(torch.isinf(t), _DBL_MIN, p)
+
+
+def _log_beta(a: float, b: float) -> float:
+    return math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
+
+
+def student_t_p(t: torch.Tensor, df: int) -> torch.Tensor:
+    """The two-sided Student-t p of t with df degrees of freedom, f64 on
+    t's device (models.lm.student_t_p_two_sided's value and sanitize
+    rules): T1 for a CUDA tensor, ``student_t_p_plain`` for one on the CPU.
+    t is taken as f64."""
+    t = t.to(torch.float64).contiguous()
+    if t.device.type == "cpu" or df <= 0:
+        return student_t_p_plain(t, df)
+    if t.device.type != "cuda":
+        raise ValueError(f"student_t_p: t is on {t.device}")
+    p = torch.empty_like(t)
+    with torch.cuda.device(t.device):
+        err = _lib().jx_student_t_p(t.data_ptr(), p.data_ptr(), t.numel(), float(df),
+                                    _log_beta(df / 2.0, 0.5),
+                                    torch.cuda.current_stream(t.device).cuda_stream)
+    _raise_on(err, "student_t_p")
+    trace.count("launch.student_t_p")
+    return p
+
+
 _WRAPPERS = ("decode_rotate", "grid_neg_reml_lattice", "gibbs_sweep_marker",
-             "gibbs_sweep_block_mvn", "null_reml_brent")
+             "gibbs_sweep_block_mvn", "null_reml_brent", "student_t_p")
 
 
 def reset_launches() -> None:

@@ -19,15 +19,19 @@ Names in use: the spans of the scans (``fit_null``, ``rotate_y``,
 ``null_brent``, ``lmm_scan``, ``feed``, ``superblock``, ``upload``,
 ``kernels``, ``to_host``, ``results``, ``splmm_grammar_scan``,
 ``sparse_null``, ``block_spectral``, ``gamma``, ``host_p``, ``lowrank_scan``,
-``lr_rotate_y``, ``lr_null``, ``lr_basis``, ``lr_lattice``) and the stages
-of ``jx gwas``; the counters ``h2d_bytes`` (bytes copied from the host to a
-device), ``launch.<wrapper>`` (ops.kernels' launches), ``gamma.card`` /
+``lr_rotate_y``, ``lr_null``, ``lr_basis``, ``lr_lattice``, ``lm_scan``,
+``farmcpu``, ``fc_map``, ``fc_bins``, ``fc_rem``, ``fc_decode``,
+``fc_prune``, ``fc_qtn_p``) and the stages of ``jx gwas``; the counters
+``h2d_bytes`` (bytes copied from the host to a device),
+``launch.<wrapper>`` (ops.kernels' launches), ``gamma.card`` /
 ``gamma.host`` (GRAMMAR γ calibrations on the device / on the host),
 ``lowrank.superblocks`` (resident superblocks of the low-rank scan),
 ``feed.resident`` / ``feed.streamed`` (superblocks served as a slice of a
-panel held on the device / uploaded on their own, models.superblocks) and
+panel held on the device / uploaded on their own, models.superblocks),
 ``null_fit.card`` / ``null_fit.plain`` (dense null REML fits through the
-null_reml_brent kernel, one per trait, / through the torch version).
+null_reml_brent kernel, one per trait, / through the torch version) and
+``lm.scans`` / ``lm.design_cols`` (LM scans, and the widths p of their
+designs summed, models.lm).
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ pattern, λ* within 2.02 grid spacings, > 50 % in the same grid cell,
 beta/se at λ* within rtol 2e-3). On random rows, whose REML profile is
 flat, one bf16 pass moves λ* further: those hold "default" to its own
 plain version only. The routes without a kernel of their own (-lowrank,
--splmm, -splmm-exact, -algwas) on the card against the same call on the
-CPU: Δ(-log10 p) <= 5e-3 (tests/test_scans.py:155), the device quadratic
+-splmm, -splmm-exact, -algwas, -lm) on the card against the same call on
+the CPU: Δ(-log10 p) <= 5e-3 (tests/test_scans.py:155), the device quadratic
 g'V^-1 g against the host f64 quad at rtol 2e-4
 (tests/test_sparse_path.py:106). The device steps of ``jx gs`` (the HE
 stream pass, marker effects, the PCG solve, the signed-hash accumulation,
@@ -27,7 +27,8 @@ the TOP loss with its gradient and Hessian, the GBLUPad AI-REML) and of
 ``jx grm``/``pca``/``gstats``/``fvlmm2 -i`` (a GRM strip, the RSVD pass,
 KING's tile pair, the joint GLS of the combo scan) and of ``jx fastpop``
 and ``jx tree`` (the admixture fit, the IBS distance) on the card against
-the same call on the CPU, each at the bound stated at its test. The Gibbs
+the same call on the CPU, each at the bound stated at its test. T1, the
+LM scan's Student-t p, against its plain version within rtol 1e-10. The Gibbs
 sweeps of ``jx gs -BayesA/B/Cpi`` (G1, G2) against their plain versions
 with the same draws: δ identical, β within rtol 1e-4 (G1) and 1e-3 (G2),
 on both of the serial pass's paths; G2's pre-pass against the
@@ -654,6 +655,48 @@ def test_fastlmm_scan_at_8000_samples_on_card_matches_cpu(dev):
     assert null.lbd == null_c.lbd
     np.testing.assert_array_equal(np.isnan(card.beta), np.isnan(cpu.beta))
     assert _dlogp(card.pwald, cpu.pwald) <= 5e-3
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_lm_scan_on_card_matches_cpu(dev, p):
+    """-lm (FarmCPU's scan) on the card against the CPU, beta, se and the
+    Student-t p formed on the device (T1 once a resident superblock, for
+    every trait at once): the same valid SNPs, Δ(-log10 p) <= 5e-3
+    (tests/test_scans.py:155)."""
+    from janusx_tpu_torch.models import lm
+
+    pg, _, Y, cov = _scan_problem(3000, 300, 2)
+    c = cov[:, : p - 1] if p > 1 else None
+    kernels.reset_launches()
+    card = lm.lm_scan_multi(pg, Y, c, block=512, superblock=1024, device=dev)
+    assert kernels.launch_counts()["student_t_p"] == -(-pg.m // 1024) == 3
+    cpu = lm.lm_scan_multi(pg, Y, c, block=512, superblock=1024, device="cpu")
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(np.isnan(a.beta), np.isnan(b.beta))
+        assert _dlogp(a.pwald, b.pwald) <= 5e-3
+
+
+@pytest.mark.parametrize("df", [1, 5, 296, 4930, 60000])
+def test_student_t_p_kernel_matches_plain(dev, df):
+    """T1 against its plain version on the CPU over |t| from 0 to 80, a
+    (2, m) operand as the scan passes it, and NaN, ±inf and 1e300: the same
+    NaN lanes, finite lanes within rtol 1e-10 (the two differ by fused
+    multiply-adds and libm's rounding, which the front factor's exponent,
+    of size ~df/2, carries into p)."""
+    rng = np.random.default_rng(df)
+    t = np.concatenate([rng.normal(0, 2, 60000), rng.normal(0, 20, 3000),
+                        np.linspace(-80, 80, 1601), 10.0 ** -np.arange(1, 12),
+                        [0.0, np.nan, np.inf, -np.inf, 1e300, -1e300]]).reshape(2, -1)
+    tt = torch.from_numpy(t)
+    kernels.reset_launches()
+    on_card = kernels.student_t_p(tt.to(dev), df)
+    assert kernels.launch_counts()["student_t_p"] == 1
+    assert on_card.shape == tt.shape and on_card.dtype == torch.float64
+    plain = kernels.student_t_p_plain(tt, df).numpy()
+    on_card = on_card.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(on_card), np.isnan(plain))
+    np.testing.assert_allclose(on_card, plain, rtol=1e-10, atol=0)
+    assert kernels.student_t_p(torch.empty(0, dtype=torch.float64, device=dev), df).numel() == 0
 
 
 def test_sparse_scans_on_card_match_cpu(dev):

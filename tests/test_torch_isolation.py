@@ -42,7 +42,7 @@ COPIES = (
                               "hapmap", "txt", "gfreader", "windowed", "native",
                               "jxgrm")]
     + [f"utils/{m}.py" for m in ("nativelib", "tsv", "prefetch", "progress", "cache")]
-    + ["models/scan_common.py", "models/farmcpu.py", "cli/common.py", "utils/history.py"]
+    + ["models/scan_common.py", "cli/common.py", "utils/history.py"]
     + [f"gs/{m}.py" for m in ("__init__", "kfold", "metrics", "model_io", "workflow")]
     + ["cli/gspredict.py", "cli/pca.py", "plots/__init__.py", "plots/structure.py"]
     + ["cli/fastpop.py", "cli/tree.py", "models/mltree.py"]

@@ -101,6 +101,79 @@ def test_lm_scan_multi_matches_reference(panel):  # noqa: F811
         _close_scan(rt[t], one, 1e-6, 1e-5)
 
 
+_DBL_MIN = np.finfo(np.float64).tiny
+
+
+@pytest.mark.parametrize("df", [1, 2, 5, 197, 4930, 60000])
+def test_student_t_p_is_the_t_distribution(df):
+    """The p the LM scan forms on its device (on the CPU T1's plain
+    version) against the t distribution's own tail (scipy's stdtr;
+    relative where p <= 1/2, absolute above, where stdtr itself is only
+    good to ~1e-9 at df = 1) and against the host p (scipy's betainc at
+    the rounded x = df/(df+t^2)), over |t| from 0 to 80."""
+    import torch
+    from scipy import special
+
+    from janusx_tpu_torch.ops.kernels import student_t_p
+
+    rng = np.random.default_rng(df)
+    t = np.concatenate([rng.normal(0, 2, 20000), rng.normal(0, 20, 2000),
+                        np.linspace(-80, 80, 801), 10.0 ** -np.arange(1, 12)])
+    p = student_t_p(torch.from_numpy(t), df).numpy()
+    tail = np.clip(2 * special.stdtr(df, -np.abs(t)), _DBL_MIN, 1.0)
+    big, tiny = tail > 0.5, tail <= 1e-290
+    assert np.max(np.abs(p[big] - tail[big])) <= 1e-8
+    mid = ~big & ~tiny
+    assert np.max(np.abs(p[mid] / tail[mid] - 1)) <= 1e-9
+    assert np.all(p[tiny] <= 1e-285)
+    host = tlm.student_t_p_two_sided(t, df)
+    assert np.max(np.abs(np.log10(p) - np.log10(host))) <= 1e-6
+
+
+def test_student_t_p_sanitizes_as_the_host():
+    import torch
+
+    from janusx_tpu_torch.ops.kernels import student_t_p
+
+    t = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e300, -1e300, 1e-300, 40.0])
+    for df in (3, 4930):
+        p = student_t_p(torch.from_numpy(t), df).numpy()
+        with np.errstate(over="ignore"):
+            host = tlm.student_t_p_two_sided(t, df)
+        np.testing.assert_array_equal(np.isnan(p), np.isnan(host))
+        np.testing.assert_allclose(p, host, rtol=1e-9)
+    assert np.all(np.isnan(student_t_p(torch.from_numpy(t), 0).numpy()))
+
+
+def test_lm_stats_are_the_host_epilogue():
+    """beta bit for bit the f64 formula the host applied before the device
+    took it over, se to an ulp (torch's vectorized sqrt on the CPU is not
+    always correctly rounded); p within 1e-6 in log10 of the host's; a lane
+    with g'M_X g ~0, a negative rss or a non-finite gram reads NaN and 1."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    T, m, df = 2, 4000, 4930
+    gMY = rng.normal(0, 30, (T, m))
+    gMg = rng.uniform(500, 5000, m)
+    gMg[:4] = (0.0, 1e-13, np.nan, np.inf)
+    gMY[:, 4] = (1e5, -1e5)  # rss < 0
+    yMy = np.array([4950.0, 5100.0])
+    beta, se, p = (x.numpy() for x in tlm._lm_stats(torch.from_numpy(gMY),
+                                                     torch.from_numpy(gMg), yMy, df))
+    for t in range(T):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            b = gMY[t] / gMg
+            s = np.sqrt((yMy[t] - gMY[t] * gMY[t] / gMg) / df / gMg)
+        ok = np.isfinite(b) & np.isfinite(s) & (s > 0) & (gMg > 1e-12)
+        assert not ok[:5].any() and ok[5:].all()
+        np.testing.assert_array_equal(beta[t], np.where(ok, b, np.nan))
+        np.testing.assert_array_equal(np.isnan(se[t]), ~ok)
+        np.testing.assert_allclose(se[t][ok], s[ok], rtol=4.5e-16, atol=0)
+        host = np.where(ok, tlm.student_t_p_two_sided(np.where(ok, b / s, 0.0), df), 1.0)
+        assert np.max(np.abs(np.log10(p[t]) - np.log10(host))) <= 1e-6
+
+
 def _numpy_fvlmm(pj, basis, y, X, lbd):
     """tests/test_scans.py:64-83's formula, all rows at once."""
     Xr, yr = basis.U.T @ X, basis.U.T @ y

@@ -130,7 +130,7 @@ def test_launch_counters_read_the_table():
     trace.count("launch.gibbs_sweep_marker")
     assert kernels.launch_counts() == {"decode_rotate": 2, "grid_neg_reml_lattice": 0,
                                        "gibbs_sweep_marker": 1, "gibbs_sweep_block_mvn": 0,
-                                       "null_reml_brent": 0}
+                                       "null_reml_brent": 0, "student_t_p": 0}
     kernels.reset_launches()
     assert set(kernels.launch_counts().values()) == {0}
     assert trace.counts()["test.other"] == 1
